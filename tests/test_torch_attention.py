@@ -1,0 +1,92 @@
+"""The port's mha_packed (its plain version, on the CPU) against the JAX
+package's Pallas `mha_packed` in interpret mode, on the same seeded inputs.
+
+Tolerances: f32 atol 2e-5, as tests/test_pallas_attention_packed.py holds
+the Pallas kernel to the XLA reference (the two sum in different orders);
+bf16 atol 2e-2: both sides round p and the output to bf16 (2^-8 relative),
+and at these input scales the outputs are O(1).
+
+Also what the wrapper and the kernel build refuse, checked without a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from zenker_audio_detection_tpu.ops import attention as JA
+from zenker_audio_detection_tpu_torch.ops import _cuda
+from zenker_audio_detection_tpu_torch.ops import attention as A
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,NH,D,bq", [(2, 64, 4, 32, 64),
+                                         (2, 300, 4, 32, 128),
+                                         (1, 146, 12, 64, 128)])
+def test_mha_packed_matches_jax(dtype, B, S, NH, D, bq):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(S + NH)
+    qkv = [rng.standard_normal((B, S, NH * D)).astype(np.float32)
+           for _ in range(3)]
+    want = np.asarray(JA.mha_packed(
+        *(jnp.asarray(x, dtype) for x in qkv), num_heads=NH, block_q=bq,
+        interpret=True)).astype(np.float32)
+    tdtype = getattr(torch, dtype)
+    got = A.mha_packed(*(torch.from_numpy(x).to(tdtype) for x in qkv),
+                       num_heads=NH)
+    assert got.dtype == tdtype and got.shape == (B, S, NH * D)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
+
+
+def _t(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("args,kw,err", [
+    ((_t(2, 8), _t(2, 8), _t(2, 8)), {"num_heads": 1}, ValueError),
+    ((_t(1, 8, 64), _t(1, 9, 64), _t(1, 8, 64)), {"num_heads": 1}, ValueError),
+    ((_t(1, 8, 64), _t(1, 8, 64), _t(1, 8, 64)), {"num_heads": 3}, ValueError),
+    ((_t(1, 0, 64), _t(1, 0, 64), _t(1, 0, 64)), {"num_heads": 1}, ValueError),
+    ((_t(1, 8, 64, dtype=torch.float16),) * 3, {"num_heads": 1}, TypeError),
+    ((_t(1, 8, 64, dtype=torch.float64),) * 3, {"num_heads": 1}, TypeError),
+    ((_t(1, 8, 64), _t(1, 8, 64, dtype=torch.bfloat16), _t(1, 8, 64)),
+     {"num_heads": 1}, TypeError),
+    ((_t(1, 8, 64, dtype=torch.int32),) * 3, {"num_heads": 1}, TypeError),
+])
+def test_mha_packed_rejects_bad_inputs(args, kw, err):
+    with pytest.raises(err):
+        A.mha_packed(*args, **kw)
+
+
+def test_kernel_checks_head_width_and_layout():
+    """What the CUDA path refuses, checked without a card."""
+    q = _t(1, 8, 128)
+    with pytest.raises(ValueError, match="head width"):
+        A._check_kernel(q, q, q, num_heads=4)   # D = 32
+    strided = torch.zeros(1, 128, 8).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        A._check_kernel(strided, strided, strided, num_heads=2)
+    A._check_kernel(q, q, q, num_heads=2)       # D = 64 passes
+
+
+def test_kernel_library_is_keyed_by_its_source():
+    lib = _cuda.library_path("mha_packed")
+    assert lib.parent == _cuda.BUILD_DIR
+    assert lib.name.startswith("mha_packed_") and lib.suffix == ".so"
+    assert lib == _cuda.library_path("mha_packed")  # stable for one source
+    assert set(_cuda._ENTRY_POINTS) == {
+        p.stem for p in _cuda.CSRC.glob("*.cu")}
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda._nvcc()
+
+
+def test_mha_packed_refuses_other_devices():
+    q = torch.zeros(1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        A.mha_packed(q, q, q, num_heads=1)

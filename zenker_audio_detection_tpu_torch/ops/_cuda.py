@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``. The build happens at first use, into ``build/torch_kernels/`` at
+the repository root, and is keyed by a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C entry points of each source: name -> number of pointer arguments before
+# the int arguments. Every entry point ends with (int..., void* stream) and
+# returns a cudaError_t as int.
+_ENTRY_POINTS = {
+    "mha_packed": {"mha_packed_bf16": (4, 3), "mha_packed_f32": (4, 3)},
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin directory on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+
+
+def build(name: str) -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+
+    Returns (library path, seconds spent compiling; 0.0 when it was built).
+    The compiler's report (registers, shared memory, spills) is kept beside
+    the library as ``<library>.log``."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel source at once, one ``nvcc`` per source; returns
+    the compile seconds of each."""
+    with ThreadPoolExecutor(max_workers=len(_ENTRY_POINTS)) as pool:
+        results = dict(zip(_ENTRY_POINTS, pool.map(build, _ENTRY_POINTS)))
+    return {name: seconds for name, (_, seconds) in results.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = ctypes.CDLL(str(build(name)[0]))
+    for fn_name, (n_ptr, n_int) in _ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
