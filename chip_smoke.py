@@ -12,9 +12,16 @@ the run loudly:
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
   2. build: compiles every kernel source with nvcc (in parallel);
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
-     path's shapes, then times kernel, plain version and PyTorch's
-     scaled_dot_product_attention (the yardstick; the port never calls it)
-     at (128, 1214, 768) bf16;
+     path's shapes and at head width 32, then times kernel, plain version
+     and PyTorch's scaled_dot_product_attention (the yardstick; the port
+     never calls it) at (128, 1214, 768) bf16;
+  3b. attention entry points: mha, mha_batched_heads, mha_qblock and
+     mha_fused driven at the AST's attention width (128, 1214, 12, 64) and
+     (128, 146, 12, 64) bf16 with the launch counters zeroed just before
+     and read just after; each held against reference_mha there, at the
+     JAX tests' shapes and block_q values, at the AST shapes in bf16 and
+     f32, and on a poisoned tail (keys past S must not be read); then
+     timed like mha_packed;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counter zeroed just before and read just after; the window
@@ -40,8 +47,10 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32
+# rate outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # mha_packed vs mha_packed_reference on the card. bf16: the kernel rounds
 # the unnormalised exp(s - m) to bf16 where the plain version rounds the
@@ -55,10 +64,54 @@ ENGINE_TOL = 2e-2
 # small f32 model, kernel on the card vs plain version on the CPU (logits)
 SMALL_F32_TOL = 1e-4
 MAIN_SHAPE = (128, 1214, 768, 12)  # (B, S, H, NH) of the AST at batch 128
+# the (B, S, NH, D) entry points: the AST's attention at batch 128, full
+# length and short-sequence length (max_length 128)
+ENTRY_SHAPES = ((128, 1214, 12, 64), (128, 146, 12, 64))
+ENTRY_POINTS = {  # name -> the Pallas function it replaces
+    "mha": "zenker_audio_detection_tpu/ops/attention.py:79",
+    "mha_batched_heads": "zenker_audio_detection_tpu/ops/attention.py:137",
+    "mha_qblock": "zenker_audio_detection_tpu/ops/attention.py:182",
+    "mha_fused": "zenker_audio_detection_tpu/ops/attention.py:252",
+}
+# (S, block_q) of tests/test_pallas_attention.py:74-80
+QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
+KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_counts(A) -> None:
+    for name in ("mha_packed", *ENTRY_POINTS):
+        getattr(A, name).launches = 0
+
+
+def bound(B: int, S: int, NH: int, D: int, itemsize: int) -> dict:
+    """The least time the card needs for attention at (B, S, NH, D):
+    4 B NH S^2 D operations at the peak rate of the dtype (the bf16 tensor
+    cores; plain f32, since the kernels never use TF32) against q, k, v and
+    the output moved once at the memory rate."""
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    flops = 4.0 * B * NH * S * S * D
+    nbytes = 4.0 * B * S * NH * D * itemsize
+    flops_ms = flops / peak * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "text": f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s "
+                    f"= {flops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 "
+                    f"TB/s = {bytes_ms:.4f} ms"}
+
+
+def require_close(what: str, out, ref, dtype) -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = ATTN_TOL[str(dtype).split(".")[-1]]
+    log(f"[kernel] {what}: max abs err {err:.3g} (tolerance {tol})")
+    if not (out.shape == ref.shape and math.isfinite(err) and err <= tol):
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{err} > {tol}")
+    return err
 
 
 def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
@@ -91,20 +144,17 @@ def phase_kernel_vs_plain(A) -> dict:
     cases = [(4, 1214, 768, 12, torch.bfloat16),
              (4, 1214, 768, 12, torch.float32),
              (4, 146, 768, 12, torch.bfloat16),
-             (2, 300, 256, 4, torch.bfloat16)]
+             (2, 300, 256, 4, torch.bfloat16),
+             (2, 300, 128, 4, torch.bfloat16),  # head width 32
+             (2, 300, 128, 4, torch.float32)]
     for B, S, H, nh, dtype in cases:
         q, k, v = qkv(B, S, H, dtype)
         out = A.mha_packed(q, k, v, num_heads=nh)
         torch.cuda.synchronize()
         ref = A.mha_packed_reference(q, k, v, nh)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = ATTN_TOL[str(dtype).split(".")[-1]]
-        log(f"[kernel] mha_packed {(B, S, H)} nh={nh} {dtype}: max abs err "
-            f"{err:.3g} (tolerance {tol})")
-        if not (out.shape == ref.shape and math.isfinite(err) and err <= tol):
-            raise AssertionError(f"mha_packed disagrees with its plain "
-                                 f"version at {(B, S, H)} {dtype}: {err}")
+        require_close(f"mha_packed {(B, S, H)} nh={nh} {dtype}", out, ref,
+                      dtype)
 
     B, S, H, nh = MAIN_SHAPE
     D = H // nh
@@ -112,11 +162,8 @@ def phase_kernel_vs_plain(A) -> dict:
     out = A.mha_packed(q, k, v, num_heads=nh)
     ref = A.mha_packed_reference(q, k, v, nh)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    log(f"[kernel] mha_packed {(B, S, H)} bf16: max abs err {err:.3g} "
-        f"(tolerance {ATTN_TOL['bfloat16']})")
-    if not err <= ATTN_TOL["bfloat16"]:
-        raise AssertionError(f"mha_packed disagrees at the main shape: {err}")
+    err = require_close(f"mha_packed {(B, S, H)} bf16", out, ref,
+                        torch.bfloat16)
     del out, ref
 
     ms = median_ms(lambda: A.mha_packed(q, k, v, num_heads=nh))
@@ -125,22 +172,117 @@ def phase_kernel_vs_plain(A) -> dict:
     heads = [x.view(B, S, nh, D).transpose(1, 2) for x in (q, k, v)]
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
-    flops = 4.0 * B * nh * S * S * D
-    nbytes = 4.0 * B * S * H * q.element_size()
-    flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(flops_ms, bytes_ms)
+    b = bound(B, S, nh, D, q.element_size())
     log(f"[kernel] timing at {(B, S, H)} bf16: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
-        f"ms; bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 "
-        f"TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms)")
-    return {"name": "mha_packed", "route": "cuda",
-            "source": "zenker_audio_detection_tpu_torch/csrc/mha_packed.cu",
-            "replaces": "zenker_audio_detection_tpu/ops/attention.py:295",
+        f"ms; bound {b['bound_ms']:.4f} ms ({b['text']})")
+    # the same H cut into 24 heads of 32: the head width of the JAX tests
+    ms32 = median_ms(lambda: A.mha_packed(q, k, v, num_heads=2 * nh))
+    b32 = bound(B, S, 2 * nh, D // 2, q.element_size())
+    log(f"[kernel] timing at {(B, S, H)} bf16 with {2 * nh} heads of "
+        f"{D // 2}: kernel {ms32:.4f} ms; bound {b32['bound_ms']:.4f} ms")
+    x32 = qkv(B, S, H, torch.float32)
+    ms_f32 = median_ms(lambda: A.mha_packed(*x32, num_heads=nh))
+    b_f32 = bound(B, S, nh, D, 4)
+    log(f"[kernel] timing at {(B, S, H)} f32: kernel {ms_f32:.4f} ms; bound "
+        f"{b_f32['bound_ms']:.4f} ms ({b_f32['text']})")
+    del x32
+    return {"name": "mha_packed", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": "zenker_audio_detection_tpu/ops/attention.py:320",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": library_ms}
+
+
+def phase_entry_points(A, torch) -> list:
+    """The four (B, S, NH, D) entry points: their own path at the AST's
+    attention width, then every check against the plain version, then
+    their times."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def qkv(shape, dtype):
+        return [torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(3)]
+
+    fns = {name: getattr(A, name) for name in ENTRY_POINTS}
+    full, short = (qkv(shape, torch.bfloat16) for shape in ENTRY_SHAPES)
+
+    # ---- the slice's path: counts zeroed just before, read just after ----
+    zero_counts(A)
+    torch.cuda.synchronize()
+    outs = {name: (fn(*full), fn(*short)) for name, fn in fns.items()}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    # -----------------------------------------------------------------------
+    log(f"[entry] launches on the entry points' path: {launches} "
+        f"(mha_packed {A.mha_packed.launches})")
+    if any(n != len(ENTRY_SHAPES) for n in launches.values()) \
+            or A.mha_packed.launches:
+        raise AssertionError(f"launch counts {launches} on the entry "
+                             f"points' path")
+    errs = {}
+    for i, x in enumerate((full, short)):
+        ref = A.reference_mha(*x)
+        for name in fns:
+            err = require_close(f"{name} {tuple(x[0].shape)} bf16 (path)",
+                                outs[name][i], ref, torch.bfloat16)
+            errs[name] = max(errs.get(name, 0.0), err)
+        del ref
+    del outs, short
+
+    # ---- against the plain version; these launches do not count ----
+    cases = ([((2, S, 4, 32), torch.float32, None) for S in (64, 100, 128, 300)]
+             + [((2, S, 4, 32), torch.float32, bq) for S, bq in QBLOCK_CASES]
+             + [((1, 70, 2, 64), torch.bfloat16, None)]
+             + [((4, S, 12, 64), dtype, None) for S in (1214, 146)
+                for dtype in (torch.bfloat16, torch.float32)])
+    for shape, dtype, bq in cases:
+        x = qkv(shape, dtype)
+        ref = A.reference_mha(*x)
+        for name, fn in fns.items():
+            if bq is not None and name not in ("mha_qblock", "mha_fused"):
+                continue
+            kw = {} if bq is None else {"block_q": bq}
+            out = fn(*x, **kw)
+            torch.cuda.synchronize()
+            require_close(f"{name} {shape} {dtype} block_q={bq}", out, ref,
+                          dtype)
+
+    # the poisoned tail: keys and values past S hold 1e4; a kernel that
+    # reads or fails to mask them moves every softmax row
+    bufs = qkv((1, 128, 2, 32), torch.float32)
+    for b in bufs:
+        b[:, 65:] = 1e4
+    views = [b[:, :65] for b in bufs]  # contiguous at B = 1
+    ref = A.reference_mha(*(v.clone() for v in views))
+    for name, fn in fns.items():
+        out = fn(*views)
+        torch.cuda.synchronize()
+        require_close(f"{name} poisoned tail (1, 65, 2, 32) f32", out, ref,
+                      torch.float32)
+
+    # ---- times at the AST width, bf16 ----
+    B, S, NH, D = ENTRY_SHAPES[0]
+    q, k, v = full
+    plain_ms = median_ms(lambda: A.reference_mha(q, k, v), warmup=1, iters=3)
+    heads = [x.transpose(1, 2) for x in full]  # (B, NH, S, D) views
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
+    b = bound(B, S, NH, D, q.element_size())
+    records = []
+    for name, fn in fns.items():
+        ms = median_ms(lambda: fn(q, k, v))
+        log(f"[entry] timing {name} at {(B, S, NH, D)} bf16: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['text']})")
+        records.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": ENTRY_POINTS[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": library_ms})
+    return records
 
 
 def seeded_audio(seconds: float, seed: int) -> np.ndarray:
@@ -201,7 +343,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     engine_gated.window_probs(audio)  # warm-up
 
     # ---- the main path: counts zeroed just before, read just after ----
-    A.mha_packed.launches = 0
+    zero_counts(A)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p1_all, p2_all = engine_all.window_probs(audio)
@@ -210,6 +352,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     p1_g, p2_g = engine_gated.window_probs(audio)
     gated_s = time.perf_counter() - t0
     launches = A.mha_packed.launches
+    others = {name: getattr(A, name).launches for name in ENTRY_POINTS}
     # ------------------------------------------------------------------
 
     n_gated = len(engine_gated._gate_indices(p1_g))
@@ -217,9 +360,10 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     expected = layers * (2 * chunks + chunks + -(-n_gated // batch))
     log(f"[engine] mha_packed launches on the main path: {launches} "
         f"(expected {expected} = {layers} layers x chunks run; {n_gated} of "
-        f"{W} windows gated)")
-    if launches != expected:
-        raise AssertionError(f"launch count {launches} != {expected}")
+        f"{W} windows gated); the other entry points: {others}")
+    if launches != expected or any(others.values()):
+        raise AssertionError(f"launch count {launches} != {expected} or "
+                             f"{others} not all 0")
     for p_, what in ((p1_all, "all/stage1"), (p2_all, "all/stage2"),
                      (p1_g, "gated/stage1"), (p2_g, "gated/stage2")):
         check_probs(p_, W, what)
@@ -345,6 +489,7 @@ def main() -> int:
                 log(f"[build] {source}: {line.strip()}")
 
     record = phase_kernel_vs_plain(A)
+    records = [record, *phase_entry_points(A, torch)]
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
     phase_small_f32(A, ast_mod, torch)
     phase_cli(A, C, ast_mod, torch)
@@ -352,7 +497,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -61,20 +61,21 @@ def test_mha_packed_rejects_bad_inputs(args, kw, err):
 
 def test_kernel_checks_head_width_and_layout():
     """What the CUDA path refuses, checked without a card."""
-    q = _t(1, 8, 128)
-    with pytest.raises(ValueError, match="head width"):
-        A._check_kernel(q, q, q, num_heads=4)   # D = 32
+    q = _t(1, 8, 192)
+    with pytest.raises(ValueError, match="head widths"):
+        A._check_kernel(q, q, q, num_heads=4)   # D = 48
     strided = torch.zeros(1, 128, 8).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         A._check_kernel(strided, strided, strided, num_heads=2)
-    A._check_kernel(q, q, q, num_heads=2)       # D = 64 passes
+    A._check_kernel(q, q, q, num_heads=6)       # D = 32 passes
+    A._check_kernel(q, q, q, num_heads=3)       # D = 64 passes
 
 
 def test_kernel_library_is_keyed_by_its_source():
-    lib = _cuda.library_path("mha_packed")
+    lib = _cuda.library_path("attention")
     assert lib.parent == _cuda.BUILD_DIR
-    assert lib.name.startswith("mha_packed_") and lib.suffix == ".so"
-    assert lib == _cuda.library_path("mha_packed")  # stable for one source
+    assert lib.name.startswith("attention_") and lib.suffix == ".so"
+    assert lib == _cuda.library_path("attention")  # stable for one source
     assert set(_cuda._ENTRY_POINTS) == {
         p.stem for p in _cuda.CSRC.glob("*.cu")}
 

@@ -84,3 +84,16 @@ def test_cpu_tensors_take_the_plain_version():
     assert A.mha_packed.launches == before
     torch.testing.assert_close(got, A.mha_packed_reference(q, k, v, 2),
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["mha", "mha_batched_heads", "mha_qblock",
+                                  "mha_fused"])
+def test_cpu_tensors_take_the_plain_version_4d(name):
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 70, 2, 64))
+                                .astype(np.float32)) for _ in range(3))
+    fn = getattr(A, name)
+    before = fn.launches
+    got = fn(q, k, v)
+    assert fn.launches == before
+    torch.testing.assert_close(got, A.reference_mha(q, k, v), atol=0, rtol=0)

@@ -1,0 +1,456 @@
+// Fused multi-head self-attention for the port's ops/attention.py.
+//
+// Replaces the five Pallas kernels of zenker_audio_detection_tpu/ops/
+// attention.py that compute one function on (B, S, NH, D), which is the same
+// memory as packed (B, S, H = NH * D):
+//   mha_packed        <- _attn_kernel_packed   grid (q tiles, NH, B)
+//   mha               <- _attn_kernel          grid (B * NH), q tiles looped
+//   mha_batched_heads <- _attn_kernel_batched  grid (B), heads x q tiles looped
+//   mha_qblock        <- _attn_kernel_qblock   grid (q blocks, B * NH)
+//   mha_fused         <- _attn_kernel_fused    grid (q blocks, B), heads looped,
+//                                              one staged (rows, H) store
+// Each keeps its TPU counterpart's work decomposition; all of them run the
+// same flash body below, so they agree with each other row for row.
+// Contract (reference_mha there): scores = q k^T / sqrt(D) accumulated in
+// f32, softmax in f32, p cast to the input dtype before the PV product, PV
+// accumulated in f32, output in the input dtype. A head's D lanes are read
+// through strides: no transposes, pads or copies around the call. Keys past
+// S are masked inside the kernel and query rows past S are not stored, where
+// the TPU wrappers pad S to a multiple of 128.
+//
+// What bounds it on an H100 SXM. At the AST shape (B, S, NH, D) =
+// (128, 1214, 12, 64) bf16: 4 * B * NH * S^2 * D = 579.5 GFLOP of products,
+// 0.59 ms at 989 TFLOP/s; q, k, v and the output are 4 x 238.7 MB = 955 MB,
+// 0.29 ms at 3.35 TB/s; the 2.26 G exponentials take about the same 0.6 ms
+// at the SFU rate. So it is compute-bound (tensor cores and exp), not bound
+// by bytes.
+//
+// The TPU kernels keep all S keys of a head on chip. At S = 1214, K and V of
+// one head are ~155 KB each in bf16, more than a block's shared memory holds
+// together, so the body is the flash form instead:
+//   * a tile of 16 * W query rows, W warps; each warp owns 16 rows and keeps
+//     its Q fragments in registers;
+//   * the block walks over the keys in tiles of 64, staged in shared memory
+//     (K row-major, V transposed so that both products read 32-bit pairs);
+//   * an online softmax keeps a running max and sum per query row in f32;
+//     the unnormalised exp(s - m) is rounded to bf16 for the PV product and
+//     the division by the row sum happens once, at the end. The reference
+//     rounds the normalised p instead, so the two agree to a tolerance;
+//   * bf16 products run on the tensor cores through mma.sync m16n8k16
+//     (bf16 in, f32 accumulate). The f32 body uses plain f32 FMAs and never
+//     TF32;
+//   * the ragged last key tile and query tile (1214 = 18 * 64 + 62) are
+//     masked inside the kernel: keys past S score -inf, rows past S are
+//     computed on zeros and not stored.
+// D (32 or 64) and W are compile-time instances. The first design aims at
+// right and simple. Double-buffered cp.async/TMA staging, wgmma and warp
+// specialisation are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBK = 64;  // keys per shared-memory tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+enum Kind { kPacked, kPerHead, kPerBatch, kQBlock, kFused };
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The shared-memory K/V tiles of one block. bf16 rows are padded by 8
+// elements, which keeps the fragment reads free of bank conflicts.
+template <typename T, int D>
+struct Tiles;
+
+template <int D>
+struct Tiles<__nv_bfloat16, D> {
+  static constexpr int kLdk = D + 8;    // k[key][d]
+  static constexpr int kLdv = kBK + 8;  // v[d][key], V transposed
+  __nv_bfloat16 k[kBK * kLdk];
+  __nv_bfloat16 v[D * kLdv];
+};
+
+template <int D>
+struct Tiles<float, D> {
+  float k[kBK * D];  // k[key][d]
+  float v[kBK * D];  // v[key][d]
+};
+
+// One tile of 16 * W query rows of one (batch, head), bf16. Token 0, lane 0
+// of the head is at q + base (and k, v + base), rows ld elements apart; the
+// tile's first row is q0. Row r of the result goes to out + obase + r * ldo;
+// rows past S are not stored. The kernel's own pointers and one offset are
+// passed, not pointers offset in advance: that keeps the D = 64 body at the
+// registers it needs without spilling.
+//
+// Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+//   A: a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
+//      a2 (row g, cols 2t+8..2t+9), a3 (row g+8, cols 2t+8..2t+9)
+//   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
+//   C: c0, c1 (row g, cols 2t..2t+1), c2, c3 (row g+8, same cols)
+template <int D, int W>
+__device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
+                                     const __nv_bfloat16* __restrict__ k,
+                                     const __nv_bfloat16* __restrict__ v,
+                                     size_t base, int S, int ld, int q0,
+                                     float scale_log2,
+                                     Tiles<__nv_bfloat16, D>& sm,
+                                     __nv_bfloat16* __restrict__ out,
+                                     ptrdiff_t obase, int ldo) {
+  using Sm = Tiles<__nv_bfloat16, D>;
+  constexpr int kThreads = 32 * W;
+  static_assert((kBK * D / 8) % kThreads == 0, "staging must divide evenly");
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+
+  uint32_t qf[D / 16][4];  // A fragments of this warp's 16 x D Q slice
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    qf[kk][0] = r0 < S ? ld32(q + base + (size_t)r0 * ld + c) : 0u;
+    qf[kk][1] = r1 < S ? ld32(q + base + (size_t)r1 * ld + c) : 0u;
+    qf[kk][2] = r0 < S ? ld32(q + base + (size_t)r0 * ld + c + 8) : 0u;
+    qf[kk][3] = r1 < S ? ld32(q + base + (size_t)r1 * ld + c + 8) : 0u;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 domain), rows r0, r1
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+
+  for (int k0 = 0; k0 < S; k0 += kBK) {
+    __syncthreads();  // every warp is done with the previous tile
+#pragma unroll
+    for (int i = 0; i < (kBK * D / 8) / kThreads; ++i) {
+      const int c = tid + kThreads * i;
+      const int key = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (k0 + key < S) {
+        const size_t off = base + (size_t)(k0 + key) * ld + d8;
+        kv = *reinterpret_cast<const uint4*>(k + off);
+        vv = *reinterpret_cast<const uint4*>(v + off);
+      }
+      *reinterpret_cast<uint4*>(sm.k + key * Sm::kLdk + d8) = kv;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sm.v[(d8 + j) * Sm::kLdv + key] = ve[j];
+    }
+    __syncthreads();
+
+    // s = q k^T for 16 rows x 64 keys: eight 8-key n-tiles, K = D in D/16 steps
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const __nv_bfloat16* kp = sm.k + (n * 8 + g) * Sm::kLdk + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16(s[n], qf[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = k0 + n * 8 + 2 * t + j < S;
+        s[n][j] = ok ? s[n][j] * scale_log2 : -INFINITY;
+        s[n][2 + j] = ok ? s[n][2 + j] * scale_log2 : -INFINITY;
+        mx0 = fmaxf(mx0, s[n][j]);
+        mx1 = fmaxf(mx1, s[n][2 + j]);
+      }
+    }
+    // key 0 is in the first tile, so the maxima are finite from here on
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= c0;
+      acc[n][1] *= c0;
+      acc[n][2] *= c1;
+      acc[n][3] *= c1;
+    }
+
+    // p = exp(s - m); the C fragments of n-tiles 2kk, 2kk+1 are the A
+    // fragment of k-step kk of the PV product
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float p0 = exp2f(s[n][0] - m0), p1 = exp2f(s[n][1] - m0);
+      const float p2 = exp2f(s[n][2] - m1), p3 = exp2f(s[n][3] - m1);
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pf[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // acc += p v: D/8 8-lane n-tiles of the head, K = 64 keys in 4 steps
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const __nv_bfloat16* vp = sm.v + (n * 8 + g) * Sm::kLdv + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_bf16(acc[n], pf[kk], ld32(vp + kk * 16), ld32(vp + kk * 16 + 8));
+    }
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(out + (obase + (ptrdiff_t)r0 * ldo + c)) =
+          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(out + (obase + (ptrdiff_t)r1 * ldo + c)) =
+          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// The same tile in f32: two threads per query row, each holding D/2 of the
+// D lanes of q and of the output; the partial dot products meet through one
+// shuffle. Keys are handled 16 at a time for the online softmax.
+template <int D, int W>
+__device__ __forceinline__ void tile(const float* __restrict__ q,
+                                     const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     size_t base, int S, int ld, int q0,
+                                     float scale_log2, Tiles<float, D>& sm,
+                                     float* __restrict__ out, ptrdiff_t obase,
+                                     int ldo) {
+  constexpr int kThreads = 32 * W, kHalf = D / 2;
+  static_assert((kBK * D / 4) % kThreads == 0, "staging must divide evenly");
+  const int tid = threadIdx.x;
+  const int half = tid & 1;
+  const int row = q0 + (tid >> 1);
+  const size_t qo = base + (size_t)row * ld + half * kHalf;
+
+  float qr[kHalf], acc[kHalf];
+#pragma unroll
+  for (int i = 0; i < kHalf; i += 4) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < S) x = *reinterpret_cast<const float4*>(q + qo + i);
+    qr[i] = x.x;
+    qr[i + 1] = x.y;
+    qr[i + 2] = x.z;
+    qr[i + 3] = x.w;
+    acc[i] = acc[i + 1] = acc[i + 2] = acc[i + 3] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < S; k0 += kBK) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < (kBK * D / 4) / kThreads; ++i) {
+      const int c = tid + kThreads * i;
+      const int key = c / (D / 4), d4 = (c % (D / 4)) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (k0 + key < S) {
+        const size_t off = base + (size_t)(k0 + key) * ld + d4;
+        kv = *reinterpret_cast<const float4*>(k + off);
+        vv = *reinterpret_cast<const float4*>(v + off);
+      }
+      *reinterpret_cast<float4*>(sm.k + key * D + d4) = kv;
+      *reinterpret_cast<float4*>(sm.v + key * D + d4) = vv;
+    }
+    __syncthreads();
+
+    for (int kb = 0; kb < kBK; kb += 16) {
+      float s[16];
+      float mx = m;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float* kr = sm.k + (kb + j) * D + half * kHalf;
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < kHalf; ++i) part = fmaf(qr[i], kr[i], part);
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        s[j] = k0 + kb + j < S ? part * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[j]);
+      }
+      const float c = exp2f(m - mx);
+      m = mx;
+      l *= c;
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) acc[i] *= c;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p = exp2f(s[j] - m);
+        l += p;
+        const float* vr = sm.v + (kb + j) * D + half * kHalf;
+#pragma unroll
+        for (int i = 0; i < kHalf; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+      }
+    }
+  }
+
+  if (row < S) {
+    const float inv = 1.f / l;
+    float* dst = out + (obase + (ptrdiff_t)row * ldo + half * kHalf);
+#pragma unroll
+    for (int i = 0; i < kHalf; i += 4)
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv,
+                      acc[i + 3] * inv);
+  }
+}
+
+// One kernel per (dtype, D, W, decomposition). The block's tiles are
+// 16 * W query rows; the grid is the one ops/attention.py:launch_geometry
+// gives for the decomposition. The launch bounds hold a thread to 128
+// registers, so that 16 warps fit on an SM: left alone, the compiler gives
+// the bf16 D = 64 body 134, only 12 warps fit, and mha_packed runs 8-9 %
+// slower at the AST shape.
+template <typename T, int D, int W, int K>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ o, int S, int NH,
+            float scale_log2) {
+  __shared__ __align__(16) Tiles<T, D> sm;
+  constexpr int R = 16 * W;
+  const int H = NH * D;
+  const size_t seq = (size_t)S * H;  // elements of one batch element
+
+  if constexpr (K == kPacked || K == kQBlock) {
+    // one tile: grid (q tiles, NH, B) or (q blocks, B * NH)
+    const int b = K == kPacked ? blockIdx.z : blockIdx.y / NH;
+    const int h = K == kPacked ? blockIdx.y : blockIdx.y % NH;
+    const size_t base = b * seq + (size_t)h * D;
+    tile<D, W>(q, k, v, base, S, H, blockIdx.x * R, scale_log2, sm, o, base,
+               H);
+  } else if constexpr (K == kPerHead || K == kPerBatch) {
+    // grid (B * NH): one head, all its q tiles; grid (B): all heads, all tiles
+    const int b = K == kPerHead ? blockIdx.x / NH : blockIdx.x;
+    const int h_begin = K == kPerHead ? blockIdx.x % NH : 0;
+    const int h_end = K == kPerHead ? h_begin + 1 : NH;
+    for (int h = h_begin; h < h_end; ++h) {
+      const size_t base = b * seq + (size_t)h * D;
+      for (int q0 = 0; q0 < S; q0 += R)
+        tile<D, W>(q, k, v, base, S, H, q0, scale_log2, sm, o, base, H);
+    }
+  } else {
+    // kFused, grid (q blocks, B): every head of one q block into a staged
+    // (R, H) tile in dynamic shared memory, then whole H-wide rows out with
+    // 16-byte stores. Rows are padded by 16 bytes against bank conflicts.
+    extern __shared__ __align__(16) unsigned char dyn[];
+    T* o_s = reinterpret_cast<T*>(dyn);
+    constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte store
+    const int ldo = H + kVec;
+    const size_t base = blockIdx.y * seq;
+    const int q0 = blockIdx.x * R;
+    for (int h = 0; h < NH; ++h)  // row r of head h at o_s[(r - q0), h * D]
+      tile<D, W>(q, k, v, base + h * D, S, H, q0, scale_log2, sm, o_s,
+                 h * D - (ptrdiff_t)q0 * ldo, ldo);
+    __syncthreads();
+    const int per_row = H / kVec;
+    for (int c = threadIdx.x; c < R * per_row; c += 32 * W) {
+      const int lr = c / per_row, col = (c % per_row) * kVec;
+      if (q0 + lr < S)
+        *reinterpret_cast<uint4*>(o + base + (size_t)(q0 + lr) * H + col) =
+            *reinterpret_cast<const uint4*>(o_s + lr * ldo + col);
+    }
+  }
+}
+
+template <typename T, int D, int W, int K>
+int launch(const void* q, const void* k, const void* v, void* o, int S,
+           int NH, dim3 grid, int smem, cudaStream_t stream) {
+  auto kern = attn_kernel<T, D, W, K>;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<grid, 32 * W, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                       (T*)o, S, NH,
+                                       kLog2e / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+// Picks the instance for (D, threads). Only mha_qblock has 8-warp tiles.
+template <typename T, int K>
+int dispatch(const void* q, const void* k, const void* v, void* o, int S,
+             int NH, int D, int gx, int gy, int gz, int threads, int smem,
+             void* stream) {
+  const dim3 grid(gx, gy, gz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (threads == 128) {
+    if (D == 32) return launch<T, 32, 4, K>(q, k, v, o, S, NH, grid, smem, st);
+    if (D == 64) return launch<T, 64, 4, K>(q, k, v, o, S, NH, grid, smem, st);
+  }
+  if constexpr (K == kQBlock) {
+    if (threads == 256) {
+      if (D == 32) return launch<T, 32, 8, K>(q, k, v, o, S, NH, grid, smem, st);
+      if (D == 64) return launch<T, 64, 8, K>(q, k, v, o, S, NH, grid, smem, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C entry points, one per (function, dtype). Pointers are device pointers to
+// contiguous (B, S, NH * D) tensors, 16-byte aligned; (gx, gy, gz), threads
+// and the dynamic shared memory in bytes are ops/attention.py's
+// launch_geometry; `stream` is a cudaStream_t. Returns the cudaError_t of
+// the launch (0 on success); an instance that does not exist is
+// cudaErrorInvalidValue. The caller validates shapes.
+#define ATTN_ENTRY(name, T, K)                                               \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      int S, int NH, int D, int gx, int gy, int gz,         \
+                      int threads, int smem, void* stream) {                 \
+    return dispatch<T, K>(q, k, v, o, S, NH, D, gx, gy, gz, threads, smem,  \
+                          stream);                                           \
+  }
+
+ATTN_ENTRY(mha_packed_bf16, __nv_bfloat16, kPacked)
+ATTN_ENTRY(mha_packed_f32, float, kPacked)
+ATTN_ENTRY(mha_bf16, __nv_bfloat16, kPerHead)
+ATTN_ENTRY(mha_f32, float, kPerHead)
+ATTN_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kPerBatch)
+ATTN_ENTRY(mha_batched_heads_f32, float, kPerBatch)
+ATTN_ENTRY(mha_qblock_bf16, __nv_bfloat16, kQBlock)
+ATTN_ENTRY(mha_qblock_f32, float, kQBlock)
+ATTN_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
+ATTN_ENTRY(mha_fused_f32, float, kFused)

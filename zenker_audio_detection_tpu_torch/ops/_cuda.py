@@ -30,7 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the int arguments. Every entry point ends with (int..., void* stream) and
 # returns a cudaError_t as int.
 _ENTRY_POINTS = {
-    "mha_packed": {"mha_packed_bf16": (4, 3), "mha_packed_f32": (4, 3)},
+    "attention": {f"{fn}_{dtype}": (4, 8)
+                  for fn in ("mha_packed", "mha", "mha_batched_heads",
+                             "mha_qblock", "mha_fused")
+                  for dtype in ("bf16", "f32")},
 }
 
 
