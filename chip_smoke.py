@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, long-recording two-stage inference, at the
-full AST width (ASTConfig(): 12 layers, H=768, 1214 tokens) with random
-weights made from fixed seeds, and holds every CUDA kernel of that path
-against its plain PyTorch version on the card. Phases, each of which fails
-the run loudly:
+Drives the port's main path, long-recording two-stage inference, and the
+training step at the full AST width (ASTConfig(): 12 layers, H=768, 1214
+tokens) with random weights made from fixed seeds, and holds every CUDA
+kernel against its plain PyTorch version on the card. Phases, each of which
+fails the run loudly:
 
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
-  2. build: compiles every kernel source with nvcc (in parallel);
+  2. build: compiles every kernel source with nvcc (in parallel), prints
+     each instance's registers and checks that the bf16 D=64 mha_packed
+     instance keeps to 128 (16 warps per SM);
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, then times kernel, plain version
      and PyTorch's scaled_dot_product_attention (the yardstick; the port
@@ -22,17 +24,36 @@ the run loudly:
      JAX tests' shapes and block_q values, at the AST shapes in bf16 and
      f32, and on a poisoned tail (keys past S must not be read); then
      timed like mha_packed;
+  3c. mha_pairs: its own path, (128, 1214, 768) and (128, 146, 768) bf16
+     with 12 heads, counts zeroed just before and read just after (2
+     mha_pairs launches, no other); held against mha_packed_reference at
+     the JAX tests' shapes and block_q values, the AST shapes in bf16 and
+     f32 and a poisoned tail; 3 heads (odd) must go to mha_packed; timed
+     like mha_packed;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counter zeroed just before and read just after; the window
      probabilities are held against the same engine with
      attention_impl="torch", and a small f32 model against the CPU;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
-     directories.
+     directories;
+  6. training at full width: batch 16 of seeded features and labels, bf16,
+     remat, stage1_loss and make_optimizer; TRAIN_STEPS steps with the
+     "kernel" attention (mha_packed_trainable), counts zeroed just before
+     (12 forward + 12 recomputed mha_packed launches per step), then as
+     many of train.steps.make_train_step ("torch" attention, what the JAX
+     trainer runs) from the same weights; the loss must fall on the fixed
+     batch in both, and the routes must agree in loss and first-step
+     gradients; mha_packed_trainable alone at (16, 1214, 768) f32 and bf16,
+     its forward and gradients against autograd through
+     mha_packed_reference; one f32 step of a small
+     model on the card against the CPU (the backward's TF32 trap); times
+     per step and of the attention's forward plus backward.
 
-The line before the last is {"kernels": [...]} with each kernel's numbers;
-the last line is {"ok": true, "device": {...}}. Exits non-zero, and prints
-no result, without CUDA. It imports nothing of JAX.
+Three lines end the output: {"kernels": [...]} with each kernel's numbers,
+then nvidia-smi's name and power limit of the card, then {"ok": true,
+"device": {...}}. Exits non-zero, and prints no result, without CUDA. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,10 +84,43 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ENGINE_TOL = 2e-2
 # small f32 model, kernel on the card vs plain version on the CPU (logits)
 SMALL_F32_TOL = 1e-4
+# training at full width, bf16: per-step losses of the "kernel" and "torch"
+# routes (the attention rounding differences above, through 12 layers, the
+# focal loss and up to 5 updates; the losses run from about 1 to 0.03, and
+# the routes read 3.6e-3 apart at most, PERF.md), and the relative norm of
+# the difference of their first-step gradients (read 1.4e-2)
+TRAIN_LOSS_TOL = 5e-3
+TRAIN_GRAD_REL_TOL = 5e-2
+# the optimizer of the training phase: .bench/train_pallas.py's weight decay
+# and beta2, lr(s) = 1e-5 (5 - s) / 5 with no warmup. On this batch the
+# first update raises the loss (0.315 -> 1.07 in both routes; why is not
+# established) and the next four bring it below where it started; at
+# learning_rate 1e-4 the loss rose and fell from step to step instead. The
+# checks: the loss after the last step is below the loss before the first
+# step and below the loss after it.
+TRAIN_STEPS = 5
+TRAIN_OPT = dict(learning_rate=1e-5, total_steps=TRAIN_STEPS,
+                 warmup_ratio=0.0, weight_decay=0.013, beta2=0.97)
+TRAIN_SHAPE = (16, 1214, 768, 12)  # the attention of a batch-16 step
+# mha_packed_trainable's gradients against autograd through the plain
+# version: f32 as tests/test_pallas_vjp.py:39-41; bf16 a few ulps of the
+# O(1) gradients (both round p and ds to bf16, at different places)
+GRAD_TOL = {"float32": (2e-4, 1e-3), "bfloat16": (2e-2, 1e-2)}
+# small f32 model, one step on the card vs the CPU: gradients (norm of the
+# difference per leaf over the larger of the leaf's norm and 1e-3; TF32 in
+# the patch convolution's weight gradient gives ~1e-3) and parameters after
+# the step. The key bias's gradient is 0 in exact arithmetic (a per-row
+# shift of the scores), so both sides hold rounding noise there, which
+# Adam's first step turns into a step of up to the learning rate: that leaf
+# is held to the learning rate, every other to SMALL_PARAM_TOL.
+SMALL_GRAD_REL_TOL = 1e-4
+SMALL_PARAM_TOL = 1e-6
+NOISE_LEAF = "encoder.k.bias"
 MAIN_SHAPE = (128, 1214, 768, 12)  # (B, S, H, NH) of the AST at batch 128
 # the (B, S, NH, D) entry points: the AST's attention at batch 128, full
 # length and short-sequence length (max_length 128)
 ENTRY_SHAPES = ((128, 1214, 12, 64), (128, 146, 12, 64))
+PAIRS_SHAPES = ((128, 1214, 768), (128, 146, 768))  # mha_pairs' path, NH=12
 ENTRY_POINTS = {  # name -> the Pallas function it replaces
     "mha": "zenker_audio_detection_tpu/ops/attention.py:79",
     "mha_batched_heads": "zenker_audio_detection_tpu/ops/attention.py:137",
@@ -82,9 +136,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+KERNELS = ("mha_packed", "mha_pairs", *ENTRY_POINTS)  # every counted wrapper
+
+
 def zero_counts(A) -> None:
-    for name in ("mha_packed", *ENTRY_POINTS):
+    for name in KERNELS:
         getattr(A, name).launches = 0
+
+
+def counts(A) -> dict:
+    return {name: getattr(A, name).launches for name in KERNELS}
 
 
 def bound(B: int, S: int, NH: int, D: int, itemsize: int) -> dict:
@@ -215,9 +276,10 @@ def phase_entry_points(A, torch) -> list:
     launches = {name: fn.launches for name, fn in fns.items()}
     # -----------------------------------------------------------------------
     log(f"[entry] launches on the entry points' path: {launches} "
-        f"(mha_packed {A.mha_packed.launches})")
+        f"(mha_packed {A.mha_packed.launches}, mha_pairs "
+        f"{A.mha_pairs.launches})")
     if any(n != len(ENTRY_SHAPES) for n in launches.values()) \
-            or A.mha_packed.launches:
+            or A.mha_packed.launches or A.mha_pairs.launches:
         raise AssertionError(f"launch counts {launches} on the entry "
                              f"points' path")
     errs = {}
@@ -283,6 +345,102 @@ def phase_entry_points(A, torch) -> list:
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": library_ms})
     return records
+
+
+def phase_pairs(A, torch) -> dict:
+    """mha_pairs: its own path at the AST's packed width, then every check
+    against the plain version, then its time beside mha_packed's."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def qkv(shape, dtype):
+        return [torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(3)]
+
+    nh = MAIN_SHAPE[3]
+    full, short = (qkv(shape, torch.bfloat16) for shape in PAIRS_SHAPES)
+
+    # ---- the slice's path: counts zeroed just before, read just after ----
+    zero_counts(A)
+    torch.cuda.synchronize()
+    outs = [A.mha_pairs(*x, num_heads=nh) for x in (full, short)]
+    torch.cuda.synchronize()
+    launches = counts(A)
+    # -----------------------------------------------------------------------
+    log(f"[pairs] launches on mha_pairs' path: {launches}")
+    if launches != {**{k: 0 for k in KERNELS},
+                    "mha_pairs": len(PAIRS_SHAPES)}:
+        raise AssertionError(f"launch counts {launches} on mha_pairs' path")
+    err = 0.0
+    for out, x in zip(outs, (full, short)):
+        ref = A.mha_packed_reference(*x, nh)
+        err = max(err, require_close(
+            f"mha_pairs {tuple(x[0].shape)} bf16 (path)", out, ref,
+            torch.bfloat16))
+        del ref
+    del outs, short
+
+    # ---- against the plain version; these launches do not count ----
+    cases = [((2, 64, 128), 4, torch.float32, 64),     # D=32, the JAX tests
+             ((2, 300, 128), 4, torch.float32, 128),
+             ((2, 300, 128), 4, torch.bfloat16, 128)]
+    cases += [((4, S, 768), nh, dtype, 256) for S in (1214, 146)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for shape, heads, dtype, bq in cases:
+        x = qkv(shape, dtype)
+        out = A.mha_pairs(*x, num_heads=heads, block_q=bq)
+        torch.cuda.synchronize()
+        require_close(f"mha_pairs {shape} nh={heads} {dtype} block_q={bq}",
+                      out, A.mha_packed_reference(*x, heads), dtype)
+    # the poisoned tail at both head widths: keys and values past S hold 1e4
+    for H, heads, dtype in ((128, 4, torch.float32), (128, 2, torch.bfloat16),
+                            (256, 4, torch.float32)):
+        bufs = qkv((1, 128, H), dtype)
+        for b in bufs:
+            b[:, 65:] = 1e4
+        views = [b[:, :65] for b in bufs]  # contiguous at B = 1
+        ref = A.mha_packed_reference(*(v.clone() for v in views), heads)
+        out = A.mha_pairs(*views, num_heads=heads)
+        torch.cuda.synchronize()
+        require_close(f"mha_pairs poisoned tail (1, 65, {H}) nh={heads} "
+                      f"{dtype}", out, ref, dtype)
+    # an odd head count is mha_packed, as the JAX function is
+    x = qkv((2, 300, 96), torch.float32)
+    before = counts(A)
+    out = A.mha_pairs(*x, num_heads=3)
+    torch.cuda.synchronize()
+    after = counts(A)
+    require_close("mha_pairs (2, 300, 96) nh=3 f32 (odd: mha_packed)", out,
+                  A.mha_packed_reference(*x, 3), torch.float32)
+    if (after["mha_packed"] - before["mha_packed"],
+            after["mha_pairs"] - before["mha_pairs"]) != (1, 0):
+        raise AssertionError(f"3 heads: counts {before} -> {after}")
+
+    # ---- times at the AST width, bf16, beside mha_packed in this call ----
+    B, S, H = PAIRS_SHAPES[0]
+    D = H // nh
+    q, k, v = full
+    ms = median_ms(lambda: A.mha_pairs(q, k, v, num_heads=nh))
+    packed_ms = median_ms(lambda: A.mha_packed(q, k, v, num_heads=nh))
+    plain_ms = median_ms(lambda: A.mha_packed_reference(q, k, v, nh),
+                         warmup=1, iters=3)
+    heads = [x.view(B, S, nh, D).transpose(1, 2) for x in full]
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
+    b = bound(B, S, nh, D, q.element_size())
+    log(f"[pairs] timing at {(B, S, H)} bf16: mha_pairs {ms:.4f} ms "
+        f"(mha_packed {packed_ms:.4f} ms in the same phase), plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
+        f"ms; bound {b['bound_ms']:.4f} ms ({b['text']})")
+    x32 = qkv((B, S, H), torch.float32)
+    ms_f32 = median_ms(lambda: A.mha_pairs(*x32, num_heads=nh))
+    log(f"[pairs] timing at {(B, S, H)} f32: mha_pairs {ms_f32:.4f} ms; "
+        f"bound {bound(B, S, nh, D, 4)['bound_ms']:.4f} ms")
+    del x32
+    return {"name": "mha_pairs", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": "zenker_audio_detection_tpu/ops/attention.py:386",
+            "launches": launches["mha_pairs"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": library_ms}
 
 
 def seeded_audio(seconds: float, seed: int) -> np.ndarray:
@@ -352,7 +510,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     p1_g, p2_g = engine_gated.window_probs(audio)
     gated_s = time.perf_counter() - t0
     launches = A.mha_packed.launches
-    others = {name: getattr(A, name).launches for name in ENTRY_POINTS}
+    others = {k: n for k, n in counts(A).items() if k != "mha_packed"}
     # ------------------------------------------------------------------
 
     n_gated = len(engine_gated._gate_indices(p1_g))
@@ -459,6 +617,292 @@ def phase_cli(A, C, ast_mod, torch) -> None:
         f"{launches}")
 
 
+def tree_to(tree, **kw):
+    from zenker_audio_detection_tpu_torch.train.optim import tree_map
+
+    return tree_map(lambda t: t.to(**kw), tree)
+
+
+def tree_items(tree):
+    """("a.b.c", leaf) for every leaf of a parameter tree."""
+    from zenker_audio_detection_tpu_torch.train.optim import tree_items
+
+    return ((".".join(path), leaf) for path, leaf in tree_items(tree))
+
+
+def rel_diff(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf of two trees."""
+    num = sum(float((x.float() - y.float()).square().sum())
+              for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+    den = sum(float(y.float().square().sum()) for _, y in tree_items(b))
+    return math.sqrt(num / den)
+
+
+def attention_fwd_bwd(fn, q, k, v, g):
+    """One forward and backward of fn(q, k, v) with output gradient g:
+    returns the output, dq, dk and dv."""
+    def run():
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs)
+        out.backward(g)
+        return [out.detach(), *(x.grad for x in xs)]
+    return run
+
+
+def phase_train_alone(A, torch) -> dict:
+    """mha_packed_trainable at the attention shape of a batch-16 step: its
+    forward (the mha_packed kernel, one launch) and its gradients against
+    autograd through the plain version (f32 and bf16), then forward plus
+    backward timed against its bound, the plain version and
+    scaled_dot_product_attention's forward plus backward."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, nh = TRAIN_SHAPE
+    D = H // nh
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(B, S, H, device="cuda", generator=gen)
+                      .to(dtype) for _ in range(4))
+        before = A.mha_packed.launches
+        got = attention_fwd_bwd(
+            lambda q, k, v: A.mha_packed_trainable(q, k, v, nh), q, k, v, g)()
+        torch.cuda.synchronize()
+        if A.mha_packed.launches - before != 1:
+            raise AssertionError("mha_packed_trainable's forward did not "
+                                 "launch the mha_packed kernel once")
+        want = attention_fwd_bwd(
+            lambda q, k, v: A.mha_packed_reference(q, k, v, nh), q, k, v, g)()
+        torch.cuda.synchronize()
+        err = require_close(f"mha_packed_trainable {(B, S, H)} {dtype} "
+                            f"forward", got[0], want[0], dtype)
+        atol, rtol = GRAD_TOL[str(dtype).split(".")[-1]]
+        for name, a, b in zip("qkv", got[1:], want[1:]):
+            e = (a.float() - b.float()).abs().max().item()
+            err = max(err, e)
+            bad = ((a.float() - b.float()).abs()
+                   > atol + rtol * b.float().abs()).sum().item()
+            log(f"[train] mha_packed_trainable {(B, S, H)} {dtype} d{name}: "
+                f"max abs err {e:.3g} vs autograd through the plain version "
+                f"(atol {atol}, rtol {rtol}); {bad} elements outside")
+            if bad or not math.isfinite(e):
+                raise AssertionError(f"d{name} of mha_packed_trainable "
+                                     f"disagrees in {dtype}")
+        del got, want
+        out[dtype] = (err, (q, k, v, g))
+
+    err, (q, k, v, g) = out[torch.bfloat16]
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd_bwd = attention_fwd_bwd(
+        lambda q, k, v: A.mha_packed_trainable(q, k, v, nh), q, k, v, g)
+    fwd_bwd()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = median_ms(fwd_bwd, iters=5)
+    plain_ms = median_ms(attention_fwd_bwd(
+        lambda q, k, v: A.mha_packed_reference(q, k, v, nh), q, k, v, g),
+        warmup=1, iters=3)
+
+    def sdpa(q, k, v):
+        heads = [x.view(B, S, nh, D).transpose(1, 2) for x in (q, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(*heads)
+        return o.transpose(1, 2).reshape(B, S, H)
+
+    library_ms = median_ms(attention_fwd_bwd(sdpa, q, k, v, g), iters=5)
+    # 4 B NH S^2 D forward (s, pv) and 10 backward (s again, dv, dp, dq, dk)
+    # at the bf16 peak; q, k, v, g in and o, dq, dk, dv out, once each
+    flops = 14.0 * B * nh * S * S * D
+    nbytes = 8.0 * B * S * H * q.element_size()
+    flops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    log(f"[train] mha_packed_trainable forward + backward at {(B, S, H)} "
+        f"bf16: {ms:.4f} ms (backward peak {peak_gb:.2f} GB above its "
+        f"inputs), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({flops / 1e9:.1f} "
+        f"GFLOP at 989 TFLOP/s = {flops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s = {bytes_ms:.4f} ms)")
+    return {"name": "mha_packed_trainable", "route": "cuda",
+            "source": f"{KERNEL_SOURCE} (forward: the mha_packed kernel) + "
+                      "zenker_audio_detection_tpu_torch/ops/attention.py:"
+                      "_mha_packed_bwd (plain PyTorch backward)",
+            "replaces": "zenker_audio_detection_tpu/ops/attention.py:422",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def phase_train(A, ast_mod, torch) -> int:
+    """Training at full width: the "kernel" route (mha_packed_trainable)
+    and the "torch" route (train.steps.make_train_step) from the same
+    weights on the same fixed batch. Returns the mha_packed launches of the
+    kernel route."""
+    from zenker_audio_detection_tpu_torch.train import losses, optim, steps
+
+    cfg = ast_mod.ASTConfig()
+    B = TRAIN_SHAPE[0]
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(rng.standard_normal(
+        (B, cfg.max_length, cfg.num_mel_bins)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.permutation(np.arange(B) % 2)).cuda()
+    params0 = tree_to(ast_mod.init_params(np.random.default_rng(7), cfg),
+                      device="cuda")
+    tx = optim.make_optimizer(**TRAIN_OPT)
+
+    def loss(logits, y):
+        return losses.stage1_loss(logits, y, 2.0, 0.07)
+
+    def kernel_loss(p, f, y):  # .bench/train_pallas.py:19-27
+        lg = ast_mod.forward(p, f, cfg, dtype=torch.bfloat16, remat=True,
+                             attention_impl="kernel")
+        return loss(lg, y), lg
+
+    def kernel_step(p, o, f, y):
+        (lv, _), g = steps.value_and_grad(kernel_loss, p, f, y)
+        u, o = tx.update(g, o, p)
+        return optim.apply_updates(p, u), o, lv, g
+
+    torch_step = steps.make_train_step(tx, cfg, loss)
+    torch_loss = steps.make_loss_fn(cfg, loss)
+    _, g_torch = steps.value_and_grad(torch_loss, params0, feats, labels)
+
+    def run(route):
+        """TRAIN_STEPS steps: the loss before each update, then the loss
+        after the last, median ms per step and the first step's
+        gradients."""
+        p, o = params0, tx.init(params0)
+        losses_, times, grads = [], [], None
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "kernel":
+                p, o, lv, g = kernel_step(p, o, feats, labels)
+                grads = g if grads is None else grads
+            else:
+                p, o, lv, _ = torch_step(p, o, feats, labels)
+            lv = float(lv)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses_.append(lv)
+        with torch.no_grad():
+            losses_.append(float(kernel_loss(p, feats, labels)[0]
+                                 if route == "kernel"
+                                 else torch_loss(p, feats, labels)[0]))
+        return losses_, float(np.median(times[1:])), grads
+
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the training path: counts zeroed just before, read just after ----
+    zero_counts(A)
+    torch.cuda.synchronize()
+    k_losses, k_ms, g_kernel = run("kernel")
+    launches = counts(A)
+    # ------------------------------------------------------------------------
+    k_peak = torch.cuda.max_memory_allocated() / 1e9
+    t_losses, t_ms, _ = run("torch")
+    t_launches = counts(A)
+    # per step: the forward and its recomputation under remat; then the
+    # forward that reads the loss after the last step
+    expected = TRAIN_STEPS * 2 * cfg.num_hidden_layers + cfg.num_hidden_layers
+    log(f"[train] launches on the kernel route: {launches} (expected "
+        f"mha_packed {expected} = {TRAIN_STEPS} steps x {cfg.num_hidden_layers}"
+        f" layers x (forward + recomputed forward under remat), + "
+        f"{cfg.num_hidden_layers} for the loss after the last step); after "
+        f"the torch route: {t_launches}")
+    if launches != {**{k: 0 for k in KERNELS}, "mha_packed": expected} \
+            or t_launches != launches:
+        raise AssertionError(f"launch counts {launches} / {t_launches} on "
+                             f"the training path")
+    grad_rel = rel_diff(g_kernel, g_torch)
+    loss_err = max(abs(a - b) for a, b in zip(k_losses, t_losses))
+    log(f"[train] loss before each step and after the last, kernel route: "
+        f"{[round(x, 6) for x in k_losses]}; torch route: "
+        f"{[round(x, 6) for x in t_losses]}; max difference {loss_err:.3g} "
+        f"(tolerance {TRAIN_LOSS_TOL}); first-step gradients, relative "
+        f"norm of the difference {grad_rel:.3g} (tolerance "
+        f"{TRAIN_GRAD_REL_TOL})")
+    log(f"[train] full width, batch {B}, bf16, remat: kernel route "
+        f"{k_ms:.2f} ms/step, torch route {t_ms:.2f} ms/step (median of "
+        f"steps 2-{TRAIN_STEPS}); peak memory of the kernel route "
+        f"{k_peak:.2f} GB")
+    for name, ls in (("kernel", k_losses), ("torch", t_losses)):
+        # ls[0] is the loss before the first step, ls[1] after it, ls[-1]
+        # after the last
+        if not all(math.isfinite(x) for x in ls) \
+                or not ls[-1] < min(ls[0], ls[1]):
+            raise AssertionError(f"{name} route: the loss did not fall: {ls}")
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError("the kernel and torch training routes disagree")
+    return launches["mha_packed"]
+
+
+def phase_train_small_f32(ast_mod, torch) -> None:
+    """One f32 train step of a small model on the card against the CPU:
+    gradients and parameters after the step. A backward in TF32 (the patch
+    convolution's weight gradient, after full_f32() has exited) shows
+    here."""
+    from zenker_audio_detection_tpu_torch.train import losses, optim, steps
+
+    cfg = ast_mod.ASTConfig(hidden_size=128, num_hidden_layers=2,
+                            num_attention_heads=2, intermediate_size=256,
+                            max_length=256)
+    params = ast_mod.init_params(np.random.default_rng(9), cfg)
+    gen = np.random.default_rng(10)
+    for key in ("pos_embed", "cls_token", "dist_token"):
+        params[key] = torch.from_numpy(
+            gen.standard_normal(params[key].shape).astype(np.float32))
+    x = torch.from_numpy(gen.standard_normal(
+        (4, cfg.max_length, cfg.num_mel_bins)).astype(np.float32))
+    y = torch.tensor([0, 1, 1, 0])
+    lr = 1e-4
+    tx = optim.make_optimizer(lr, 10, 0.0, 0.01)
+    kw = dict(dtype=torch.float32, remat=True)
+    loss_fn = steps.make_loss_fn(cfg, losses.stage1_loss, **kw)
+    step = steps.make_train_step(tx, cfg, losses.stage1_loss, **kw)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, device=dev)
+        (lv, _), g = steps.value_and_grad(loss_fn, p, x.to(dev), y.to(dev))
+        new, _, _, _ = step(p, tx.init(p), x.to(dev), y.to(dev))
+        results[dev] = (float(lv), tree_to(g, device="cpu"),
+                        tree_to(new, device="cpu"))
+    (lc, gc, pc), (lg, gg, pg) = results["cpu"], results["cuda"]
+    worst, worst_key = 0.0, ""
+    for (key, a), (_, b) in zip(tree_items(gg), tree_items(gc)):
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-3)
+        worst, worst_key = max((worst, worst_key), (rel, key))
+    params_err = max(float((a - b).abs().max()) for (key, a), (_, b)
+                     in zip(tree_items(pg), tree_items(pc))
+                     if key != NOISE_LEAF)
+    noise_err = float((dict(tree_items(pg))[NOISE_LEAF]
+                       - dict(tree_items(pc))[NOISE_LEAF]).abs().max())
+    log(f"[train] small f32 model, one step, card vs CPU: loss {lg:.7f} vs "
+        f"{lc:.7f}; worst gradient leaf {worst_key} at relative "
+        f"{worst:.3g} (tolerance {SMALL_GRAD_REL_TOL}); parameters after "
+        f"the step max abs err {params_err:.3g} (tolerance "
+        f"{SMALL_PARAM_TOL}), {NOISE_LEAF} {noise_err:.3g} (tolerance {lr})")
+    if not (abs(lg - lc) <= 1e-5 and worst <= SMALL_GRAD_REL_TOL
+            and params_err <= SMALL_PARAM_TOL and noise_err <= lr):
+        raise AssertionError("the f32 train step on the card disagrees "
+                             "with the CPU")
+
+
+def check_registers(report: str) -> None:
+    """The bf16 D=64 mha_packed instance must keep to 128 registers, so
+    that four 4-warp blocks fit on an SM."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "attn_kernelI13__nv_bfloat16Li64ELi4ELi0E" in line:
+            used = next(l for l in lines[i + 1:] if "Used" in l)
+            regs = int(used.split("Used")[1].split("registers")[0])
+            log(f"[build] mha_packed bf16 D=64: {regs} registers")
+            if regs > 128:
+                raise AssertionError(f"mha_packed bf16 D=64 uses {regs} "
+                                     f"registers, more than 128")
+            return
+    raise AssertionError("no mha_packed bf16 D=64 instance in the report")
+
+
 def main() -> int:
     import torch
 
@@ -487,12 +931,18 @@ def main() -> int:
         for line in report.splitlines():
             if "Compiling entry function" in line or "Used" in line:
                 log(f"[build] {source}: {line.strip()}")
+        if source == "attention":
+            check_registers(report)
 
     record = phase_kernel_vs_plain(A)
-    records = [record, *phase_entry_points(A, torch)]
+    records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch)]
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
     phase_small_f32(A, ast_mod, torch)
     phase_cli(A, C, ast_mod, torch)
+    trainable = phase_train_alone(A, torch)
+    trainable["launches"] = phase_train(A, ast_mod, torch)
+    records.append(trainable)
+    phase_train_small_f32(ast_mod, torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

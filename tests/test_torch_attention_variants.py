@@ -119,7 +119,7 @@ def test_fused_staging_fits_the_ast_width(itemsize):
     ("mha_fused", (1, 64, 28, 64, 2), "shared memory"),   # bf16, H = 1792
     ("mha_qblock", (1, 64, 70000, 32, 2), "grid"),        # B * NH > 65535
     ("mha_packed", (70000, 64, 1, 32, 2), "grid"),        # B > 65535
-    ("mha_pairs", (1, 64, 2, 32, 2), "no attention kernel"),
+    ("mha_triples", (1, 64, 3, 32, 2), "no attention kernel"),
 ])
 def test_launch_geometry_refuses(kind, args, match):
     with pytest.raises(ValueError, match=match):

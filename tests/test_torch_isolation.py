@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points do not fall back to the CPU on their own."""
+package, nor optax or sklearn (the machine with the card has neither), and
+its entry points do not fall back to the CPU on their own."""
 
 import os
 import pkgutil
@@ -28,15 +29,16 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "zenker_audio_detection_tpu_torch.infer.cascade" in mods
     assert "zenker_audio_detection_tpu_torch.ops.attention" in mods
+    assert {"zenker_audio_detection_tpu_torch.train.optim",
+            "zenker_audio_detection_tpu_torch.train.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith('jax.')\n"
-        "             or m == 'zenker_audio_detection_tpu'\n"
-        "             or m.startswith('zenker_audio_detection_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'optax', 'sklearn',\n"
+        "                                    'zenker_audio_detection_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -97,3 +99,29 @@ def test_cpu_tensors_take_the_plain_version_4d(name):
     got = fn(q, k, v)
     assert fn.launches == before
     torch.testing.assert_close(got, A.reference_mha(q, k, v), atol=0, rtol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_pairs():
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 70, 256))
+                                .astype(np.float32)) for _ in range(3))
+    before = (A.mha_pairs.launches, A.mha_packed.launches)
+    got = A.mha_pairs(q, k, v, num_heads=4)
+    assert (A.mha_pairs.launches, A.mha_packed.launches) == before
+    torch.testing.assert_close(got, A.mha_packed_reference(q, k, v, 4),
+                               atol=0, rtol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_trainable():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 70, 128))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    before = A.mha_packed.launches
+    got = A.mha_packed_trainable(q, k, v, 2)
+    got.sum().backward()
+    assert A.mha_packed.launches == before
+    assert got.grad_fn is not None and q.grad is not None
+    torch.testing.assert_close(got.detach(),
+                               A.mha_packed_reference(q, k, v, 2).detach(),
+                               atol=0, rtol=0)

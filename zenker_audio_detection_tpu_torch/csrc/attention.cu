@@ -1,9 +1,12 @@
 // Fused multi-head self-attention for the port's ops/attention.py.
 //
-// Replaces the five Pallas kernels of zenker_audio_detection_tpu/ops/
+// Replaces the six Pallas kernels of zenker_audio_detection_tpu/ops/
 // attention.py that compute one function on (B, S, NH, D), which is the same
 // memory as packed (B, S, H = NH * D):
 //   mha_packed        <- _attn_kernel_packed   grid (q tiles, NH, B)
+//   mha_pairs         <- _attn_kernel_pairs    grid (q tiles, NH / 2, B), two
+//                                              heads per block on one staged
+//                                              2 * D-lane K/V tile
 //   mha               <- _attn_kernel          grid (B * NH), q tiles looped
 //   mha_batched_heads <- _attn_kernel_batched  grid (B), heads x q tiles looped
 //   mha_qblock        <- _attn_kernel_qblock   grid (q blocks, B * NH)
@@ -42,8 +45,14 @@
 //   * the ragged last key tile and query tile (1214 = 18 * 64 + 62) are
 //     masked inside the kernel: keys past S score -inf, rows past S are
 //     computed on zeros and not stored.
-// D (32 or 64) and W are compile-time instances. The first design aims at
-// right and simple. Double-buffered cp.async/TMA staging, wgmma and warp
+// D (32 or 64) and W are compile-time instances, and so is P, the heads
+// that share one block's staged K/V tile (2 for mha_pairs, else 1). The TPU
+// pairs kernel packs its two heads block-diagonally into (2S, 128) K/V with
+// zeros to fill the 128-wide MXU; that doubles the products and is not
+// carried over. What it buys here is one staged 2 * D-lane tile (256 B a row
+// in bf16) for two heads: warps 0..W/2-1 take the first, the rest the second,
+// each reading its half of the tile. The first design aims at right and
+// simple. Double-buffered cp.async/TMA staging, wgmma and warp
 // specialisation are left for later work.
 
 #include <cuda_bf16.h>
@@ -57,7 +66,7 @@ namespace {
 constexpr int kBK = 64;  // keys per shared-memory tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum Kind { kPacked, kPerHead, kPerBatch, kQBlock, kFused };
+enum Kind { kPacked, kPerHead, kPerBatch, kQBlock, kFused, kPairs };
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -88,31 +97,35 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The shared-memory K/V tiles of one block. bf16 rows are padded by 8
-// elements, which keeps the fragment reads free of bank conflicts.
-template <typename T, int D>
+// The shared-memory K/V tiles of one block: P heads' P * D contiguous lanes
+// of 64 keys. bf16 rows are padded by 8 elements, which keeps the fragment
+// reads free of bank conflicts (a row is 4 banks apart from the next at
+// either width).
+template <typename T, int D, int P = 1>
 struct Tiles;
 
-template <int D>
-struct Tiles<__nv_bfloat16, D> {
-  static constexpr int kLdk = D + 8;    // k[key][d]
-  static constexpr int kLdv = kBK + 8;  // v[d][key], V transposed
+template <int D, int P>
+struct Tiles<__nv_bfloat16, D, P> {
+  static constexpr int kLdk = P * D + 8;  // k[key][d]
+  static constexpr int kLdv = kBK + 8;    // v[d][key], V transposed
   __nv_bfloat16 k[kBK * kLdk];
-  __nv_bfloat16 v[D * kLdv];
+  __nv_bfloat16 v[P * D * kLdv];
 };
 
-template <int D>
-struct Tiles<float, D> {
-  float k[kBK * D];  // k[key][d]
-  float v[kBK * D];  // v[key][d]
+template <int D, int P>
+struct Tiles<float, D, P> {
+  float k[kBK * P * D];  // k[key][d]
+  float v[kBK * P * D];  // v[key][d]
 };
 
-// One tile of 16 * W query rows of one (batch, head), bf16. Token 0, lane 0
-// of the head is at q + base (and k, v + base), rows ld elements apart; the
-// tile's first row is q0. Row r of the result goes to out + obase + r * ldo;
-// rows past S are not stored. The kernel's own pointers and one offset are
-// passed, not pointers offset in advance: that keeps the D = 64 body at the
-// registers it needs without spilling.
+// One tile of 16 * W / P query rows of P heads of one batch element, bf16.
+// Token 0, lane 0 of the first head is at q + base (and k, v + base), rows
+// ld elements apart; the tile's first row is q0. Warp group hp (W / P warps)
+// takes head hp, whose lanes start hp * D further on. Row r of head hp's
+// result goes to out + obase + hp * D + r * ldo; rows past S are not
+// stored. The kernel's own pointers and one offset are passed, not pointers
+// offset in advance: that keeps the D = 64 body at the registers it needs
+// without spilling.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -120,27 +133,32 @@ struct Tiles<float, D> {
 //      a2 (row g, cols 2t+8..2t+9), a3 (row g+8, cols 2t+8..2t+9)
 //   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
 //   C: c0, c1 (row g, cols 2t..2t+1), c2, c3 (row g+8, same cols)
-template <int D, int W>
+template <int D, int W, int P = 1>
 __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
                                      size_t base, int S, int ld, int q0,
                                      float scale_log2,
-                                     Tiles<__nv_bfloat16, D>& sm,
+                                     Tiles<__nv_bfloat16, D, P>& sm,
                                      __nv_bfloat16* __restrict__ out,
                                      ptrdiff_t obase, int ldo) {
-  using Sm = Tiles<__nv_bfloat16, D>;
+  using Sm = Tiles<__nv_bfloat16, D, P>;
   constexpr int kThreads = 32 * W;
-  static_assert((kBK * D / 8) % kThreads == 0, "staging must divide evenly");
+  static_assert(W % P == 0, "each head takes W / P warps");
+  static_assert((kBK * P * D / 8) % kThreads == 0,
+                "staging must divide evenly");
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  // this warp's head of the P and its 16-row slice of the head's rows
+  const int hp = P == 1 ? 0 : warp / (W / P);
+  const int wr = P == 1 ? warp : warp % (W / P);
+  const int r0 = q0 + wr * 16 + g, r1 = r0 + 8;
 
   uint32_t qf[D / 16][4];  // A fragments of this warp's 16 x D Q slice
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
+    const int c = hp * D + kk * 16 + 2 * t;
     qf[kk][0] = r0 < S ? ld32(q + base + (size_t)r0 * ld + c) : 0u;
     qf[kk][1] = r1 < S ? ld32(q + base + (size_t)r1 * ld + c) : 0u;
     qf[kk][2] = r0 < S ? ld32(q + base + (size_t)r0 * ld + c + 8) : 0u;
@@ -157,9 +175,9 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();  // every warp is done with the previous tile
 #pragma unroll
-    for (int i = 0; i < (kBK * D / 8) / kThreads; ++i) {
+    for (int i = 0; i < (kBK * P * D / 8) / kThreads; ++i) {
       const int c = tid + kThreads * i;
-      const int key = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      const int key = c / (P * D / 8), d8 = (c % (P * D / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + key < S) {
         const size_t off = base + (size_t)(k0 + key) * ld + d8;
@@ -178,7 +196,8 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kp = sm.k + (n * 8 + g) * Sm::kLdk + 2 * t;
+      const __nv_bfloat16* kp =
+          sm.k + (n * 8 + g) * Sm::kLdk + hp * D + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         mma_bf16(s[n], qf[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
@@ -228,7 +247,8 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
     // acc += p v: D/8 8-lane n-tiles of the head, K = 64 keys in 4 steps
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* vp = sm.v + (n * 8 + g) * Sm::kLdv + 2 * t;
+      const __nv_bfloat16* vp =
+          sm.v + (hp * D + n * 8 + g) * Sm::kLdv + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         mma_bf16(acc[n], pf[kk], ld32(vp + kk * 16), ld32(vp + kk * 16 + 8));
@@ -238,7 +258,7 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
   const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+    const int c = hp * D + n * 8 + 2 * t;
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(out + (obase + (ptrdiff_t)r0 * ldo + c)) =
           pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
@@ -248,23 +268,29 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The same tile in f32: two threads per query row, each holding D/2 of the
-// D lanes of q and of the output; the partial dot products meet through one
-// shuffle. Keys are handled 16 at a time for the online softmax.
-template <int D, int W>
+// The same tile in f32: two threads per query row and head, each holding
+// D/2 of the D lanes of q and of the output; the partial dot products meet
+// through one shuffle. Keys are handled 16 at a time for the online softmax.
+// With P heads the first 32 * W / P threads take the first head, and so on.
+template <int D, int W, int P = 1>
 __device__ __forceinline__ void tile(const float* __restrict__ q,
                                      const float* __restrict__ k,
                                      const float* __restrict__ v,
                                      size_t base, int S, int ld, int q0,
-                                     float scale_log2, Tiles<float, D>& sm,
+                                     float scale_log2, Tiles<float, D, P>& sm,
                                      float* __restrict__ out, ptrdiff_t obase,
                                      int ldo) {
-  constexpr int kThreads = 32 * W, kHalf = D / 2;
-  static_assert((kBK * D / 4) % kThreads == 0, "staging must divide evenly");
+  constexpr int kThreads = 32 * W, kHalf = D / 2, kLd = P * D;
+  static_assert(W % P == 0, "each head takes W / P warps");
+  static_assert((kBK * P * D / 4) % kThreads == 0,
+                "staging must divide evenly");
   const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int row = q0 + (tid >> 1);
-  const size_t qo = base + (size_t)row * ld + half * kHalf;
+  const int hp = P == 1 ? 0 : tid / (kThreads / P);
+  const int ht = P == 1 ? tid : tid % (kThreads / P);
+  const int half = ht & 1;
+  const int row = q0 + (ht >> 1);
+  const int lane0 = hp * D + half * kHalf;  // this thread's first lane
+  const size_t qo = base + (size_t)row * ld + lane0;
 
   float qr[kHalf], acc[kHalf];
 #pragma unroll
@@ -282,17 +308,17 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < (kBK * D / 4) / kThreads; ++i) {
+    for (int i = 0; i < (kBK * P * D / 4) / kThreads; ++i) {
       const int c = tid + kThreads * i;
-      const int key = c / (D / 4), d4 = (c % (D / 4)) * 4;
+      const int key = c / (kLd / 4), d4 = (c % (kLd / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + key < S) {
         const size_t off = base + (size_t)(k0 + key) * ld + d4;
         kv = *reinterpret_cast<const float4*>(k + off);
         vv = *reinterpret_cast<const float4*>(v + off);
       }
-      *reinterpret_cast<float4*>(sm.k + key * D + d4) = kv;
-      *reinterpret_cast<float4*>(sm.v + key * D + d4) = vv;
+      *reinterpret_cast<float4*>(sm.k + key * kLd + d4) = kv;
+      *reinterpret_cast<float4*>(sm.v + key * kLd + d4) = vv;
     }
     __syncthreads();
 
@@ -301,7 +327,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
       float mx = m;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float* kr = sm.k + (kb + j) * D + half * kHalf;
+        const float* kr = sm.k + (kb + j) * kLd + lane0;
         float part = 0.f;
 #pragma unroll
         for (int i = 0; i < kHalf; ++i) part = fmaf(qr[i], kr[i], part);
@@ -318,7 +344,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
       for (int j = 0; j < 16; ++j) {
         const float p = exp2f(s[j] - m);
         l += p;
-        const float* vr = sm.v + (kb + j) * D + half * kHalf;
+        const float* vr = sm.v + (kb + j) * kLd + lane0;
 #pragma unroll
         for (int i = 0; i < kHalf; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
       }
@@ -327,7 +353,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
 
   if (row < S) {
     const float inv = 1.f / l;
-    float* dst = out + (obase + (ptrdiff_t)row * ldo + half * kHalf);
+    float* dst = out + (obase + (ptrdiff_t)row * ldo + lane0);
 #pragma unroll
     for (int i = 0; i < kHalf; i += 4)
       *reinterpret_cast<float4*>(dst + i) =
@@ -393,10 +419,36 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// kPairs, grid (q tiles, NH / 2, B): heads 2p and 2p + 1 of one 16 * W / 2
+// row q tile, on K/V tiles staged once for both. The pair's tiles are in
+// dynamic shared memory: 64 KB in f32, over the 48 KB a static array may
+// take. A kernel of its own, so that attn_kernel's instances stay as they
+// were.
+template <typename T, int D, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+pairs_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int S, int NH,
+             float scale_log2) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  auto& sm = *reinterpret_cast<Tiles<T, D, 2>*>(dyn);
+  const int H = NH * D;
+  const size_t base =
+      blockIdx.z * ((size_t)S * H) + (size_t)blockIdx.y * 2 * D;
+  tile<D, W, 2>(q, k, v, base, S, H, blockIdx.x * (16 * W / 2), scale_log2,
+                sm, o, base, H);
+}
+
 template <typename T, int D, int W, int K>
 int launch(const void* q, const void* k, const void* v, void* o, int S,
            int NH, dim3 grid, int smem, cudaStream_t stream) {
-  auto kern = attn_kernel<T, D, W, K>;
+  void (*kern)(const T*, const T*, const T*, T*, int, int, float);
+  if constexpr (K == kPairs) {
+    if (smem < (int)sizeof(Tiles<T, D, 2>))
+      return (int)cudaErrorInvalidValue;  // the pair's tiles must fit
+    kern = pairs_kernel<T, D, W>;
+  } else {
+    kern = attn_kernel<T, D, W, K>;
+  }
   if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -408,18 +460,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int S,
   return (int)cudaGetLastError();
 }
 
-// Picks the instance for (D, threads). Only mha_qblock has 8-warp tiles.
+// Picks the instance for (D, threads). mha_qblock has 4- and 8-warp tiles,
+// mha_pairs 8 warps only (4 per head), the others 4 warps.
 template <typename T, int K>
 int dispatch(const void* q, const void* k, const void* v, void* o, int S,
              int NH, int D, int gx, int gy, int gz, int threads, int smem,
              void* stream) {
   const dim3 grid(gx, gy, gz);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (threads == 128) {
-    if (D == 32) return launch<T, 32, 4, K>(q, k, v, o, S, NH, grid, smem, st);
-    if (D == 64) return launch<T, 64, 4, K>(q, k, v, o, S, NH, grid, smem, st);
+  if constexpr (K != kPairs) {
+    if (threads == 128) {
+      if (D == 32)
+        return launch<T, 32, 4, K>(q, k, v, o, S, NH, grid, smem, st);
+      if (D == 64)
+        return launch<T, 64, 4, K>(q, k, v, o, S, NH, grid, smem, st);
+    }
   }
-  if constexpr (K == kQBlock) {
+  if constexpr (K == kQBlock || K == kPairs) {
     if (threads == 256) {
       if (D == 32) return launch<T, 32, 8, K>(q, k, v, o, S, NH, grid, smem, st);
       if (D == 64) return launch<T, 64, 8, K>(q, k, v, o, S, NH, grid, smem, st);
@@ -446,6 +503,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int S,
 
 ATTN_ENTRY(mha_packed_bf16, __nv_bfloat16, kPacked)
 ATTN_ENTRY(mha_packed_f32, float, kPacked)
+ATTN_ENTRY(mha_pairs_bf16, __nv_bfloat16, kPairs)
+ATTN_ENTRY(mha_pairs_f32, float, kPairs)
 ATTN_ENTRY(mha_bf16, __nv_bfloat16, kPerHead)
 ATTN_ENTRY(mha_f32, float, kPerHead)
 ATTN_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kPerBatch)

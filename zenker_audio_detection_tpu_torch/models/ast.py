@@ -23,15 +23,24 @@ Numerics follow the JAX package:
     bf16 rounding apart per layer. The port keeps the JAX order, at the cost
     of one extra elementwise pass over each dense output;
   * logits are f32;
-  * everything runs inside `full_f32()`, so f32 matmuls and the f32 patch
-    convolution never use TF32.
-Attention is `ops.attention.mha_packed` ("kernel", the counterpart of the
-JAX "pallas" route) or its plain version ("torch", the counterpart of "xla").
+  * the forward runs inside `full_f32()`, so f32 matmuls and the f32 patch
+    convolution never use TF32. The backward runs after that context has
+    exited: a caller that differentiates an f32 forward runs the backward
+    inside `full_f32()` too, as `train.steps` does, or cuDNN computes the
+    patch convolution's weight gradient in TF32.
+Attention is `ops.attention.mha_packed_trainable` ("kernel", the
+counterpart of the JAX "pallas" route: the Hopper kernel forward, a plain
+backward) or the plain version ("torch", the counterpart of "xla").
+
+For training, `remat` recomputes each block's forward in the backward
+(`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint` does, and
+`reinit_head` and `adapt_max_length` are the JAX functions of those names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -43,6 +52,7 @@ from ..utils.precision import full_f32
 
 Params = dict[str, Any]
 ATTENTION_IMPLS = ("kernel", "torch")
+REMAT_POLICIES = ("full", "dots_no_batch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +157,56 @@ def init_params(rng: np.random.Generator, config: ASTConfig) -> Params:
     }
 
 
+def reinit_head(rng: np.random.Generator, params: Params, config: ASTConfig,
+                num_labels: int | None = None) -> Params:
+    """Re-initialize only the classifier head, as the reference does after
+    `from_pretrained(..., ignore_mismatched_sizes=True)` + `init_weights()`:
+    the other parameters keep their values (and tensors), the new head has
+    unit/zero LayerNorm, a zero bias and a N(0, initializer_range) kernel
+    drawn from `rng` (the JAX function takes a key; the draws differ). The
+    head lands on the device of the other parameters."""
+    n = num_labels if num_labels is not None else config.num_labels
+    h = config.hidden_size
+    device = params["ln_final"]["scale"].device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    new = dict(params)
+    new["head"] = {
+        "ln": {"scale": t(np.ones(h)), "bias": t(np.zeros(h))},
+        "dense": {"kernel": t(_trunc_normal(rng, (h, n),
+                                            config.initializer_range)),
+                  "bias": t(np.zeros(n))},
+    }
+    return new
+
+
+def adapt_max_length(params: Params, config: ASTConfig,
+                     new_max_length: int) -> tuple[Params, ASTConfig]:
+    """Adapt a model to another input length by cutting or zero-extending
+    the time axis of the position embeddings, the AST authors' transfer
+    trick and the JAX function of this name. pos_embed is [CLS, DIST,
+    patch(f=0, t=0..T-1), patch(f=1, ...), ...]: it is reshaped to
+    (F, T, H), cut or extended along T and flattened back. Every other
+    parameter is length-independent and kept as it is."""
+    new_config = dataclasses.replace(config, max_length=new_max_length)
+    F_dim, T_old = config.frequency_out_dimension, config.time_out_dimension
+    T_new = new_config.time_out_dimension
+    h = config.hidden_size
+    pe = params["pos_embed"]  # (1, 2 + F * T_old, H)
+    special, patches = pe[:, :2], pe[:, 2:].reshape(F_dim, T_old, h)
+    if T_new <= T_old:
+        patches = patches[:, :T_new]
+    else:
+        patches = torch.cat([patches, patches.new_zeros(
+            (F_dim, T_new - T_old, h))], dim=1)
+    new_params = dict(params)
+    new_params["pos_embed"] = torch.cat(
+        [special, patches.reshape(1, F_dim * T_new, h)], dim=1)
+    return new_params, new_config
+
+
 def cast_params(params: Params, dtype: torch.dtype, device) -> Params:
     """Params on `device`, with every tensor the forward pass casts to the
     compute dtype cast once here; LayerNorm parameters and the head stay in
@@ -186,7 +246,9 @@ def _attention(x, lp, config: ASTConfig, impl: str):
     k = _dense(x, lp["k"]["kernel"], lp["k"]["bias"])
     v = _dense(x, lp["v"]["kernel"], lp["v"]["bias"])
     if impl == "kernel":
-        ctx = attn_ops.mha_packed(q, k, v, num_heads=nh)
+        # the Hopper kernel forward with a plain backward, as the JAX
+        # "pallas" route calls its custom VJP
+        ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
     else:
         ctx = attn_ops.mha_packed_reference(q, k, v, nh)
     return _dense(ctx, lp["attn_out"]["kernel"], lp["attn_out"]["bias"])
@@ -220,12 +282,59 @@ def patch_embed(params: Params, input_values: torch.Tensor,
                                            config.hidden_size)
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots_no_batch" policy: keep the outputs of the products with no
+    batch dimension (the dense layers' `mm`; the attention's products are
+    batched `bmm`) and recompute everything else, as the JAX
+    `checkpoint_dots_with_no_batch_dims` policy does."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(block, remat_policy: str):
+    """`block` under `torch.utils.checkpoint`: "full" saves only the block's
+    input, "dots_no_batch" also the weight products (selective activation
+    checkpointing). The recomputed forward runs inside `full_f32()` like the
+    first one, whenever the backward runs."""
+    from torch.utils import checkpoint as ckpt
+
+    kw = {}
+    if remat_policy == "dots_no_batch":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_weight_products)
+
+    def f32_block(x, lp):
+        with full_f32():
+            return block(x, lp)
+
+    return lambda x, lp: ckpt.checkpoint(f32_block, x, lp,
+                                         use_reentrant=False, **kw)
+
+
 def encode(params: Params, input_values: torch.Tensor, config: ASTConfig,
-           *, dtype=torch.float32, attention_impl: str = "torch") -> torch.Tensor:
-    """Full trunk: features -> final-LN'd hidden states (B, S, H)."""
+           *, dtype=torch.float32, remat: bool = False,
+           remat_policy: str = "full",
+           attention_impl: str = "torch") -> torch.Tensor:
+    """Full trunk: features -> final-LN'd hidden states (B, S, H).
+
+    remat_policy (when remat=True and autograd records):
+      "full": save each block's input only and recompute the block in the
+        backward; without it the per-layer f32 score tensors are kept;
+      "dots_no_batch": save the dense layers' products too and recompute
+        only the attention internals and the elementwise work.
+    Remat changes no number, only what is kept for the backward."""
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                          f"got {attention_impl!r}")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat_policy!r}")
+    block = functools.partial(_block, config=config, impl=attention_impl)
+    if remat and torch.is_grad_enabled():
+        block = _checkpointed(block, remat_policy)
     with full_f32():
         x = patch_embed(params, input_values, config, dtype)
         B = x.shape[0]
@@ -236,7 +345,7 @@ def encode(params: Params, input_values: torch.Tensor, config: ASTConfig,
         for layer in range(enc["ln1"]["scale"].shape[0]):
             lp = {name: {key: leaf[layer] for key, leaf in group.items()}
                   for name, group in enc.items()}
-            x = _block(x, lp, config, attention_impl)
+            x = block(x, lp)
         return _layer_norm(x, params["ln_final"]["scale"],
                            params["ln_final"]["bias"], config.layer_norm_eps)
 
@@ -258,9 +367,11 @@ def classify(params: Params, pooled: torch.Tensor,
 
 
 def forward(params: Params, input_values: torch.Tensor, config: ASTConfig,
-            *, dtype=torch.float32, attention_impl: str = "torch") -> torch.Tensor:
+            *, dtype=torch.float32, remat: bool = False,
+            remat_policy: str = "full",
+            attention_impl: str = "torch") -> torch.Tensor:
     """(B, max_length, num_mel_bins) normalized features -> (B, num_labels)
     f32 logits, equivalent to `ASTForAudioClassification.forward(...).logits`."""
-    hidden = encode(params, input_values, config, dtype=dtype,
-                    attention_impl=attention_impl)
+    hidden = encode(params, input_values, config, dtype=dtype, remat=remat,
+                    remat_policy=remat_policy, attention_impl=attention_impl)
     return classify(params, pool(hidden), config)

@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # returns a cudaError_t as int.
 _ENTRY_POINTS = {
     "attention": {f"{fn}_{dtype}": (4, 8)
-                  for fn in ("mha_packed", "mha", "mha_batched_heads",
-                             "mha_qblock", "mha_fused")
+                  for fn in ("mha_packed", "mha_pairs", "mha",
+                             "mha_batched_heads", "mha_qblock", "mha_fused")
                   for dtype in ("bf16", "f32")},
 }
 

@@ -1,13 +1,19 @@
 """Fused multi-head attention: softmax(q k^T / sqrt(D)) v per head.
 
-The port of the JAX package's `ops/attention.py`. Five entry points compute
-the same function with the work cut five ways, each the counterpart of one
+The port of the JAX package's `ops/attention.py`. Six entry points compute
+the same function with the work cut six ways, each the counterpart of one
 Pallas kernel there:
 
-- `mha_packed` on packed (B, S, H = NH * D) projections (`_attn_kernel_packed`);
+- `mha_packed` and `mha_pairs` on packed (B, S, H = NH * D) projections
+  (`_attn_kernel_packed`, `_attn_kernel_pairs`);
 - `mha`, `mha_batched_heads`, `mha_qblock` and `mha_fused` on (B, S, NH, D)
   (`_attn_kernel`, `_attn_kernel_batched`, `_attn_kernel_qblock`,
   `_attn_kernel_fused`).
+
+`mha_packed_trainable` is `mha_packed` under autograd, the counterpart of
+the JAX custom VJP of that name: the forward is `mha_packed`, the backward
+recomputes the probabilities in plain PyTorch, as the JAX backward does in
+XLA.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
 `csrc/attention.cu`; on CPU tensors each runs the plain PyTorch version
@@ -48,6 +54,7 @@ MAX_SHARED_BYTES = 232_448
 _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
 _QBLOCK_MAX_ROWS = 128  # mha_qblock's 8-warp tile
+_PAIR_HEADS = 2  # heads of one mha_pairs block
 
 
 def reference_mha(q: torch.Tensor, k: torch.Tensor,
@@ -84,8 +91,8 @@ def mha_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @dataclass(frozen=True)
 class Launch:
     """How one kernel call is cut: the CUDA grid, the threads of a block
-    (two per query row), the query rows of a block's tile and the bytes of
-    dynamic shared memory."""
+    (two per query row and head), the query rows of a block's tile and the
+    bytes of dynamic shared memory."""
     grid: tuple[int, int, int]
     threads: int
     rows: int
@@ -102,20 +109,32 @@ def qblock_rows(block_q: int) -> int:
     return min(_round_up(block_q, _TILE_ROWS), _QBLOCK_MAX_ROWS)
 
 
-def _static_smem(D: int, itemsize: int) -> int:
-    """The K/V tiles of `csrc/attention.cu:Tiles`, in bytes."""
+def _static_smem(D: int, itemsize: int, heads: int = 1) -> int:
+    """The K/V tiles of `csrc/attention.cu:Tiles` for `heads` heads side by
+    side (their heads * D contiguous lanes), in bytes."""
+    lanes = heads * D
     if itemsize == 2:
-        return itemsize * (_TILE_KEYS * (D + 8) + D * (_TILE_KEYS + 8))
-    return itemsize * 2 * _TILE_KEYS * D
+        return itemsize * (_TILE_KEYS * (lanes + 8) + lanes * (_TILE_KEYS + 8))
+    return itemsize * 2 * _TILE_KEYS * lanes
 
 
 def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
                     itemsize: int, block_q: int = 256) -> Launch:
     """The launch of entry point `kind` at (B, S, NH, D). Query blocks are
     counted with `cdiv`, so the last, ragged one is launched too."""
-    rows, smem = _TILE_ROWS, 0
+    rows, smem, heads = _TILE_ROWS, 0, 1
     if kind == "mha_packed":
         grid = (cdiv(S, rows), NH, B)
+    elif kind == "mha_pairs":
+        # one block per (q tile, head pair, batch element); its K/V tiles
+        # hold both heads' lanes and live in dynamic shared memory (the f32
+        # pair is 64 KB, over the 48 KB a static array may take)
+        if NH % _PAIR_HEADS:
+            raise ValueError(f"mha_pairs takes an even number of heads, "
+                             f"got {NH}")
+        heads = _PAIR_HEADS
+        grid = (cdiv(S, rows), NH // heads, B)
+        smem = _static_smem(D, itemsize, heads)
     elif kind == "mha":
         grid = (B * NH, 1, 1)
     elif kind == "mha_batched_heads":
@@ -138,7 +157,7 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
     if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} needs the "
                          f"grid {grid}, beyond CUDA's limits")
-    return Launch(grid, 2 * rows, rows, smem)
+    return Launch(grid, 2 * rows * heads, rows, smem)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
@@ -212,6 +231,94 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              num_heads: int, block_q: int = 256) -> torch.Tensor:
+    """The same function as `mha_packed`, one block per (64-row query tile,
+    head pair, batch element), the TPU kernel's two heads per program.
+
+    The block stages each 64-key K/V tile once for both heads (the pair's
+    2 * D contiguous lanes) and runs one online softmax per head against
+    it: warps 0-3 take head 2p, warps 4-7 head 2p + 1. The TPU kernel's
+    block-diagonal zero padding, which fills its 128-wide matrix unit, is
+    not carried over: it would double the products here. With an odd
+    `num_heads` it is `mha_packed`, as the JAX function is (that launch
+    counts in `mha_packed.launches`). `block_q` >= 1 is accepted and does
+    not change the output. CPU tensors run `mha_packed_reference`. Each
+    kernel launch adds one to `mha_pairs.launches`."""
+    _check(q, k, v, "mha_pairs", 3)
+    if block_q < 1:
+        raise ValueError(f"block_q must be at least 1, got {block_q}")
+    if num_heads < 1 or q.shape[2] % num_heads:
+        raise ValueError(f"H={q.shape[2]} does not split into "
+                         f"num_heads={num_heads} heads")
+    if num_heads % _PAIR_HEADS:
+        return mha_packed(q, k, v, num_heads=num_heads)
+    if q.device.type == "cpu":
+        return mha_packed_reference(q, k, v, num_heads)
+    B, S, H = q.shape
+    out = _launch("mha_pairs", q, k, v, B, S, num_heads, H // num_heads)
+    mha_pairs.launches += 1
+    return out
+
+
+def _mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, num_heads: int):
+    """The JAX package's `_mha_packed_bwd`, step by step and with its casts:
+    p is recomputed in f32 from q and k (no score residuals are kept), each
+    product accumulates in f32 and each gradient is cast to the input
+    dtype. bf16 operands are widened to f32 before a product, as in
+    `reference_mha`: exact products, f32 sums."""
+    B, S, H = q.shape
+    D = H // num_heads
+    scale = 1.0 / math.sqrt(D)
+
+    def heads(x):  # (B, S, H) -> (B, NH, S, D) in f32
+        return x.reshape(B, S, num_heads, D).transpose(1, 2).float()
+
+    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    p_b = p.to(q.dtype).float()
+    dv = torch.matmul(p_b.transpose(-1, -2), gh).to(q.dtype)
+    del p_b
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    del p, dp
+    ds = (ds * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kh).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), qh).to(q.dtype)
+
+    def packed(x):  # (B, NH, S, D) -> (B, S, H)
+        return x.transpose(1, 2).reshape(B, S, H)
+
+    return packed(dq), packed(dk), packed(dv)
+
+
+class _MhaPackedTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return mha_packed(q, k, v, num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*_mha_packed_bwd(q, k, v, g, ctx.num_heads), None)
+
+
+def mha_packed_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """`mha_packed` with a gradient, the JAX custom VJP of the same name.
+
+    The forward is `mha_packed` (its Hopper kernel on the card, counted in
+    `mha_packed.launches`; the plain version on the CPU) and saves q, k and
+    v only. The backward is plain PyTorch on (B, NH, S, S), as the JAX
+    backward is XLA: it recomputes p and forms dv, dp, ds = p (dp - sum p
+    dp), dq and dk (`_mha_packed_bwd`). At the AST's training shape (16,
+    1214, 768) each (B, NH, S, S) f32 tensor it makes is 1.13 GB."""
+    return _MhaPackedTrainable.apply(q, k, v, num_heads)
+
+
 def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             block_q: int = 256) -> torch.Tensor:
     """Runs one (B, S, NH, D) entry point: `reference_mha` on the CPU, the
@@ -273,6 +380,7 @@ def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _attend(mha_fused, q, k, v, block_q)
 
 
-for _entry in (mha_packed, mha, mha_batched_heads, mha_qblock, mha_fused):
+for _entry in (mha_packed, mha_pairs, mha, mha_batched_heads, mha_qblock,
+               mha_fused):
     _entry.launches = 0
 del _entry
