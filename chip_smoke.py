@@ -10,9 +10,9 @@ kernel against its plain PyTorch version on the card. Phases, each of which
 fails the run loudly:
 
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
-  2. build: compiles every kernel source with nvcc (in parallel), prints
-     each instance's registers and checks that the bf16 D=64 mha_packed
-     instance keeps to 128 (16 warps per SM);
+  2. build: compiles every kernel source with nvcc (one per source, in
+     parallel), prints each instance's registers and spills and checks
+     that the bf16 D=64 mha_packed instance keeps to 128 (16 warps per SM);
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, then times kernel, plain version
      and PyTorch's scaled_dot_product_attention (the yardstick; the port
@@ -37,18 +37,25 @@ fails the run loudly:
      attention_impl="torch", and a small f32 model against the CPU;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
      directories;
-  6. training at full width: batch 16 of seeded features and labels, bf16,
-     remat, stage1_loss and make_optimizer; TRAIN_STEPS steps with the
-     "kernel" attention (mha_packed_trainable), counts zeroed just before
-     (12 forward + 12 recomputed mha_packed launches per step), then as
-     many of train.steps.make_train_step ("torch" attention, what the JAX
-     trainer runs) from the same weights; the loss must fall on the fixed
-     batch in both, and the routes must agree in loss and first-step
-     gradients; mha_packed_trainable alone at (16, 1214, 768) f32 and bf16,
-     its forward and gradients against autograd through
-     mha_packed_reference; one f32 step of a small
-     model on the card against the CPU (the backward's TF32 trap); times
-     per step and of the attention's forward plus backward.
+  6. training: mha_packed_trainable alone at (16, 1214, 768) f32 and bf16:
+     the lse forward (mha_packed_lse) bitwise mha_packed's output and its
+     lse against the plain version; one launch of it and of each backward
+     kernel (mha_packed_bwd_dq, mha_packed_bwd_dkdv) per forward and
+     backward; dq, dk, dv against autograd through mha_packed_reference,
+     the JAX-form plain backward _mha_packed_bwd and the kernels' own
+     algorithm, on NaN-poisoned tails too; two backwards bitwise equal;
+     times of forward + backward, the backward alone and each kernel. Then
+     full width: batch 16 of seeded features and labels, bf16, remat,
+     stage1_loss and make_optimizer; TRAIN_STEPS steps with the "kernel"
+     attention (mha_packed_trainable), counts zeroed just before and read
+     just after (per step 24 mha_packed_lse, 12 of each backward kernel;
+     12 mha_packed for the no-grad loss after the last step; every plain
+     attention version raises meanwhile), then as many of
+     train.steps.make_train_step ("torch" attention, what the JAX trainer
+     runs) from the same weights; the loss must fall on the fixed batch in
+     both, and the routes must agree in loss and first-step gradients; one
+     f32 step of a small model on the card against the CPU (the
+     backward's TF32 trap); times per step.
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -130,13 +137,25 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
 KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
+BWD_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_bwd.cu"
+# the JAX custom VJP mha_packed_trainable and its XLA backward
+TRAINABLE_REPLACES = "zenker_audio_detection_tpu/ops/attention.py:422"
+BWD_REPLACES = "zenker_audio_detection_tpu/ops/attention.py:441-465"
+# mha_packed_lse's row log-sum-exp (log2 domain, values ~10) against its
+# plain version: both sum 1214 f32 exponentials, in different orders
+LSE_TOL = 1e-4
+# the poisoned tails of the backward: (B, S, H, heads); every buffer holds
+# NaN past the tensor's end
+POISON_CASES = ((1, 65, 64, 2), (2, 300, 128, 4))
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("mha_packed", "mha_pairs", *ENTRY_POINTS)  # every counted wrapper
+# every counted wrapper
+KERNELS = ("mha_packed", "mha_pairs", *ENTRY_POINTS, "mha_packed_lse",
+           "mha_packed_bwd_dq", "mha_packed_bwd_dkdv")
 
 
 def zero_counts(A) -> None:
@@ -148,14 +167,9 @@ def counts(A) -> dict:
     return {name: getattr(A, name).launches for name in KERNELS}
 
 
-def bound(B: int, S: int, NH: int, D: int, itemsize: int) -> dict:
-    """The least time the card needs for attention at (B, S, NH, D):
-    4 B NH S^2 D operations at the peak rate of the dtype (the bf16 tensor
-    cores; plain f32, since the kernels never use TF32) against q, k, v and
-    the output moved once at the memory rate."""
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
-    flops = 4.0 * B * NH * S * S * D
-    nbytes = 4.0 * B * S * NH * D * itemsize
+def roofline(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time for `flops` operations at `peak` and `nbytes` bytes
+    at the memory rate: the larger of the two, and which it is."""
     flops_ms = flops / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(flops_ms, bytes_ms),
@@ -163,6 +177,16 @@ def bound(B: int, S: int, NH: int, D: int, itemsize: int) -> dict:
             "text": f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s "
                     f"= {flops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 "
                     f"TB/s = {bytes_ms:.4f} ms"}
+
+
+def bound(B: int, S: int, NH: int, D: int, itemsize: int) -> dict:
+    """The least time the card needs for attention at (B, S, NH, D):
+    4 B NH S^2 D operations at the peak rate of the dtype (the bf16 tensor
+    cores; plain f32, since the kernels never use TF32) against q, k, v and
+    the output moved once at the memory rate."""
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    return roofline(4.0 * B * NH * S * S * D, 4.0 * B * S * NH * D * itemsize,
+                    peak)
 
 
 def require_close(what: str, out, ref, dtype) -> float:
@@ -275,11 +299,11 @@ def phase_entry_points(A, torch) -> list:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in fns.items()}
     # -----------------------------------------------------------------------
+    others = {k: n for k, n in counts(A).items() if k not in fns}
     log(f"[entry] launches on the entry points' path: {launches} "
-        f"(mha_packed {A.mha_packed.launches}, mha_pairs "
-        f"{A.mha_pairs.launches})")
+        f"(the other kernels: {others})")
     if any(n != len(ENTRY_SHAPES) for n in launches.values()) \
-            or A.mha_packed.launches or A.mha_pairs.launches:
+            or any(others.values()):
         raise AssertionError(f"launch counts {launches} on the entry "
                              f"points' path")
     errs = {}
@@ -589,7 +613,7 @@ def phase_cli(A, C, ast_mod, torch) -> None:
             aio.write_wav(os.path.join(patient, f"rec_{k}.wav"),
                           seeded_audio(seconds, seed=10 + k) / 32768.0, 16000)
         out_json = os.path.join(tmp, "P001_2stage.json")
-        A.mha_packed.launches = 0
+        zero_counts(A)
         out = infer_long_audio.main([
             "--patient-id", "P001", "--long-audio-root",
             os.path.join(tmp, "data"), "--stage1-model-root", roots[0],
@@ -597,6 +621,7 @@ def phase_cli(A, C, ast_mod, torch) -> None:
             "--stage2-mode", "all", "--output-json", out_json,
             "--show-first-n", "0"])
         launches = A.mha_packed.launches
+        others = {k: n for k, n in counts(A).items() if k != "mha_packed"}
         with open(out_json) as f:
             saved = json.load(f)
     windows = sum(len(C.window_starts(int(16000 * s), 1.0, 0.5))
@@ -610,11 +635,13 @@ def phase_cli(A, C, ast_mod, torch) -> None:
             or agg["total_idle_windows"] + agg["total_swallow_windows"]
             != windows or sorted(saved["per_file"]) != ["file_0", "file_1"]):
         raise AssertionError(f"CLI window counts are wrong: {agg}")
-    if launches != 2 * 2 * 12:  # 2 files x 2 stages x 1 chunk x 12 layers
-        raise AssertionError(f"CLI launched mha_packed {launches} times")
+    # 2 files x 2 stages x 1 chunk x 12 layers
+    if launches != 2 * 2 * 12 or any(others.values()):
+        raise AssertionError(f"CLI launched mha_packed {launches} times, "
+                             f"the other kernels {others}")
     log(f"[cli] patient JSON: {agg['total_windows']} windows, "
         f"{agg['total_swallow_windows']} swallow; mha_packed launches "
-        f"{launches}")
+        f"{launches}, the other kernels {others}")
 
 
 def tree_to(tree, **kw):
@@ -649,94 +676,270 @@ def attention_fwd_bwd(fn, q, k, v, g):
     return run
 
 
-def phase_train_alone(A, torch) -> dict:
-    """mha_packed_trainable at the attention shape of a batch-16 step: its
-    forward (the mha_packed kernel, one launch) and its gradients against
-    autograd through the plain version (f32 and bf16), then forward plus
-    backward timed against its bound, the plain version and
-    scaled_dot_product_attention's forward plus backward."""
+PLAIN_VERSIONS = ("reference_mha", "mha_packed_reference",
+                  "mha_packed_lse_reference", "mha_packed_bwd_reference",
+                  "mha_packed_bwd_dq_reference",
+                  "mha_packed_bwd_dkdv_reference", "_mha_packed_bwd")
+
+
+class no_plain_versions:
+    """Within it, a call of any plain attention version of ops/attention.py
+    raises: the card's path must not reach one."""
+
+    def __init__(self, A):
+        self.A, self.saved = A, {}
+
+    def __enter__(self):
+        for name in PLAIN_VERSIONS:
+            self.saved[name] = getattr(self.A, name)
+
+            def refuse(*args, _name=name, **kw):
+                raise AssertionError(f"the card's path called {_name}")
+            setattr(self.A, name, refuse)
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.A, name, fn)
+
+
+def grad_check(what: str, got, want, dtype) -> dict:
+    """dq, dk, dv against a reference at GRAD_TOL; returns each one's max
+    abs error."""
+    atol, rtol = GRAD_TOL[str(dtype).split(".")[-1]]
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - b.float()).abs()
+        e = diff.max().item()
+        bad = (diff > atol + rtol * b.float().abs()).sum().item()
+        log(f"[train] {what} {dtype} {name}: max abs err {e:.3g} (atol "
+            f"{atol}, rtol {rtol}); {bad} elements outside")
+        if bad or not math.isfinite(e) or a.shape != b.shape:
+            raise AssertionError(f"{name} of {what} disagrees in {dtype}")
+        errs[name] = e
+    return errs
+
+
+def poisoned(x, pad: int):
+    """x copied to the front of a buffer that holds NaN past its end."""
+    import torch
+
+    buf = torch.full((x.numel() + pad,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    view = buf[:x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phase_train_alone(A, torch) -> list:
+    """mha_packed_trainable at the attention shape of a batch-16 step, f32
+    and bf16: the lse forward's output against mha_packed's (bitwise) and
+    its lse against the plain version; one launch of each of the three
+    kernels per forward and backward; dq, dk, dv against autograd through
+    the plain version, the JAX-form plain backward _mha_packed_bwd and the
+    kernels' own algorithm; two backwards bitwise equal; poisoned tails.
+    Then the times of forward plus backward, the backward alone and each
+    kernel, against their bounds, plain versions and
+    scaled_dot_product_attention. Returns the records of mha_packed_lse,
+    the two backward kernels and mha_packed_trainable (launches to fill)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, S, H, nh = TRAIN_SHAPE
     D = H // nh
-    out = {}
+    errs = {"lse": 0.0, "dq": 0.0, "dkdv": 0.0, "trainable": 0.0}
+
+    def trainable(q, k, v):
+        return A.mha_packed_trainable(q, k, v, nh)
+
+    def plain(q, k, v):
+        return A.mha_packed_reference(q, k, v, nh)
+
+    def note(e: dict) -> None:
+        errs["dq"] = max(errs["dq"], e["dq"])
+        errs["dkdv"] = max(errs["dkdv"], e["dk"], e["dv"])
+        errs["trainable"] = max(errs["trainable"], *e.values())
+
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, g = (torch.randn(B, S, H, device="cuda", generator=gen)
                       .to(dtype) for _ in range(4))
-        before = A.mha_packed.launches
-        got = attention_fwd_bwd(
-            lambda q, k, v: A.mha_packed_trainable(q, k, v, nh), q, k, v, g)()
+        o, lse = A.mha_packed_lse(q, k, v, num_heads=nh)
         torch.cuda.synchronize()
-        if A.mha_packed.launches - before != 1:
-            raise AssertionError("mha_packed_trainable's forward did not "
-                                 "launch the mha_packed kernel once")
-        want = attention_fwd_bwd(
-            lambda q, k, v: A.mha_packed_reference(q, k, v, nh), q, k, v, g)()
-        torch.cuda.synchronize()
-        err = require_close(f"mha_packed_trainable {(B, S, H)} {dtype} "
-                            f"forward", got[0], want[0], dtype)
-        atol, rtol = GRAD_TOL[str(dtype).split(".")[-1]]
-        for name, a, b in zip("qkv", got[1:], want[1:]):
-            e = (a.float() - b.float()).abs().max().item()
-            err = max(err, e)
-            bad = ((a.float() - b.float()).abs()
-                   > atol + rtol * b.float().abs()).sum().item()
-            log(f"[train] mha_packed_trainable {(B, S, H)} {dtype} d{name}: "
-                f"max abs err {e:.3g} vs autograd through the plain version "
-                f"(atol {atol}, rtol {rtol}); {bad} elements outside")
-            if bad or not math.isfinite(e):
-                raise AssertionError(f"d{name} of mha_packed_trainable "
-                                     f"disagrees in {dtype}")
-        del got, want
-        out[dtype] = (err, (q, k, v, g))
+        if not torch.equal(o, A.mha_packed(q, k, v, num_heads=nh)):
+            raise AssertionError(f"mha_packed_lse's output is not "
+                                 f"mha_packed's bit for bit ({dtype})")
+        lse_ref = A.mha_packed_lse_reference(q, k, v, nh)[1]
+        e = (lse - lse_ref).abs().max().item()
+        log(f"[train] mha_packed_lse {(B, S, H)} {dtype}: output equal to "
+            f"mha_packed's bit for bit; lse max abs err {e:.3g} vs its "
+            f"plain version (tolerance {LSE_TOL})")
+        if not e <= LSE_TOL:
+            raise AssertionError(f"mha_packed_lse's lse disagrees: {e}")
+        errs["lse"] = max(errs["lse"], e)
+        del lse_ref
 
-    err, (q, k, v, g) = out[torch.bfloat16]
-    del out
+        before = counts(A)
+        got = attention_fwd_bwd(trainable, q, k, v, g)()
+        torch.cuda.synchronize()
+        ran = {n: counts(A)[n] - before[n] for n in KERNELS}
+        if ran != {**{n: 0 for n in KERNELS}, "mha_packed_lse": 1,
+                   "mha_packed_bwd_dq": 1, "mha_packed_bwd_dkdv": 1}:
+            raise AssertionError(f"one forward and backward launched {ran}")
+        want = attention_fwd_bwd(plain, q, k, v, g)()
+        torch.cuda.synchronize()
+        errs["trainable"] = max(errs["trainable"], require_close(
+            f"mha_packed_trainable {(B, S, H)} {dtype} forward", got[0],
+            want[0], dtype))
+        what = f"mha_packed_trainable {(B, S, H)}"
+        note(grad_check(f"{what} vs autograd through the plain version",
+                        got[1:], want[1:], dtype))
+        del want
+        note(grad_check(f"{what} vs _mha_packed_bwd (the JAX form)",
+                        got[1:], A._mha_packed_bwd(q, k, v, g, nh), dtype))
+        note(grad_check(f"{what} vs mha_packed_bwd_reference (the kernels' "
+                        f"algorithm)", got[1:],
+                        A.mha_packed_bwd_reference(q, k, v, o, lse, g, nh),
+                        dtype))
+        again = [A.mha_packed_bwd(q, k, v, o, lse, g, num_heads=nh)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c
+                   in zip(got[1:], *again)):
+            raise AssertionError(f"two backwards differ in {dtype}")
+        log(f"[train] {what} {dtype}: three backwards bitwise equal")
+        del got, again, o, lse
+
+    # poisoned tails: every buffer, the lse and delta scratch included, holds
+    # NaN past the tensor's end; the kernels must read none of it
+    for Bp, Sp, Hp, hp in POISON_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [torch.randn(Bp, Sp, Hp, device="cuda", generator=gen)
+                 .to(dtype) for _ in range(4)]
+            o, lse = A.mha_packed_lse(*x[:3], num_heads=hp)
+            pq, pk, pv, pg = (poisoned(t, 64 * Hp) for t in x)
+            po, plse = A.mha_packed_lse(pq, pk, pv, num_heads=hp)
+            torch.cuda.synchronize()
+            if not (torch.equal(po, o) and torch.equal(plse, lse)):
+                raise AssertionError(f"mha_packed_lse read past the end "
+                                     f"({Bp}, {Sp}, {Hp}) {dtype}")
+            dq, delta = A.mha_packed_bwd_dq(pq, pk, pv, poisoned(o, 64 * Hp),
+                                            poisoned(lse, 256), pg,
+                                            num_heads=hp)
+            dk, dv = A.mha_packed_bwd_dkdv(pq, pk, pv, pg, poisoned(lse, 256),
+                                           poisoned(delta, 256), num_heads=hp)
+            torch.cuda.synchronize()
+            what = f"poisoned tail ({Bp}, {Sp}, {Hp}) nh={hp}"
+            note(grad_check(f"{what} vs mha_packed_bwd_reference",
+                            (dq, dk, dv),
+                            A.mha_packed_bwd_reference(*x[:3], o, lse, x[3],
+                                                       hp), dtype))
+            note(grad_check(f"{what} vs _mha_packed_bwd", (dq, dk, dv),
+                            A._mha_packed_bwd(*x, hp), dtype))
+
+    # ---- times at the training shape, bf16 ----
+    q, k, v, g = (torch.randn(B, S, H, device="cuda", generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    o, lse = A.mha_packed_lse(q, k, v, num_heads=nh)
+    _, delta = A.mha_packed_bwd_dq(q, k, v, o, lse, g, num_heads=nh)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    fwd_bwd = attention_fwd_bwd(
-        lambda q, k, v: A.mha_packed_trainable(q, k, v, nh), q, k, v, g)
-    fwd_bwd()
+    A.mha_packed_bwd(q, k, v, o, lse, g, num_heads=nh)
     torch.cuda.synchronize()
-    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    ms = median_ms(fwd_bwd, iters=5)
-    plain_ms = median_ms(attention_fwd_bwd(
-        lambda q, k, v: A.mha_packed_reference(q, k, v, nh), q, k, v, g),
-        warmup=1, iters=3)
+    bwd_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = median_ms(attention_fwd_bwd(trainable, q, k, v, g))
+    plain_ms = median_ms(attention_fwd_bwd(plain, q, k, v, g), warmup=1,
+                         iters=3)
+    bwd_ms = median_ms(lambda: A.mha_packed_bwd(q, k, v, o, lse, g,
+                                                num_heads=nh))
+    bwd_plain_ms = median_ms(lambda: A._mha_packed_bwd(q, k, v, g, nh),
+                             warmup=1, iters=3)
+    lse_ms = median_ms(lambda: A.mha_packed_lse(q, k, v, num_heads=nh))
+    packed_ms = median_ms(lambda: A.mha_packed(q, k, v, num_heads=nh))
+    lse_plain_ms = median_ms(lambda: A.mha_packed_lse_reference(q, k, v, nh),
+                             warmup=1, iters=3)
+    dq_ms = median_ms(lambda: A.mha_packed_bwd_dq(q, k, v, o, lse, g,
+                                                  num_heads=nh))
+    dq_plain_ms = median_ms(lambda: A.mha_packed_bwd_dq_reference(
+        q, k, v, o, lse, g, nh), warmup=1, iters=3)
+    dkdv_ms = median_ms(lambda: A.mha_packed_bwd_dkdv(q, k, v, g, lse, delta,
+                                                      num_heads=nh))
+    dkdv_plain_ms = median_ms(lambda: A.mha_packed_bwd_dkdv_reference(
+        q, k, v, g, lse, delta, nh), warmup=1, iters=3)
 
     def sdpa(q, k, v):
         heads = [x.view(B, S, nh, D).transpose(1, 2) for x in (q, k, v)]
         o = torch.nn.functional.scaled_dot_product_attention(*heads)
         return o.transpose(1, 2).reshape(B, S, H)
 
-    library_ms = median_ms(attention_fwd_bwd(sdpa, q, k, v, g), iters=5)
-    # 4 B NH S^2 D forward (s, pv) and 10 backward (s again, dv, dp, dq, dk)
-    # at the bf16 peak; q, k, v, g in and o, dq, dk, dv out, once each
-    flops = 14.0 * B * nh * S * S * D
-    nbytes = 8.0 * B * S * H * q.element_size()
-    flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(flops_ms, bytes_ms)
-    log(f"[train] mha_packed_trainable forward + backward at {(B, S, H)} "
-        f"bf16: {ms:.4f} ms (backward peak {peak_gb:.2f} GB above its "
-        f"inputs), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({flops / 1e9:.1f} "
-        f"GFLOP at 989 TFLOP/s = {flops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at "
-        f"3.35 TB/s = {bytes_ms:.4f} ms)")
-    return {"name": "mha_packed_trainable", "route": "cuda",
-            "source": f"{KERNEL_SOURCE} (forward: the mha_packed kernel) + "
-                      "zenker_audio_detection_tpu_torch/ops/attention.py:"
-                      "_mha_packed_bwd (plain PyTorch backward)",
-            "replaces": "zenker_audio_detection_tpu/ops/attention.py:422",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms}
+    library_ms = median_ms(attention_fwd_bwd(sdpa, q, k, v, g))
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    # the forward that keeps its log-sum-exp for a backward, and that
+    # backward alone
+    fwd_library_ms = median_ms(lambda: sdpa(*xs))
+    o_s = sdpa(*xs)
+    bwd_library_ms = median_ms(lambda: torch.autograd.grad(
+        o_s, xs, g, retain_graph=True))
+    del xs, o_s
+
+    work = B * nh * S * S * D  # one product's multiply-adds over 2
+    act = B * S * H * q.element_size()  # bytes of one packed activation
+    stat = 4.0 * B * nh * S  # bytes of lse or delta
+    # forward 4 (s, pv), backward 10 (s, dv, dp, dq, dk); q, k, v, g in,
+    # o, dq, dk, dv out
+    b_all = roofline(14.0 * work, 8.0 * act, PEAK_BF16_FLOPS)
+    # q, k, v, o, g in, dq, dk, dv out
+    b_bwd = roofline(10.0 * work, 8.0 * act + stat, PEAK_BF16_FLOPS)
+    b_lse = roofline(4.0 * work, 4.0 * act + stat, PEAK_BF16_FLOPS)
+    # dq needs s, dp and dq; q, k, v, o, g, lse in, dq, delta out
+    b_dq = roofline(6.0 * work, 6.0 * act + 2 * stat, PEAK_BF16_FLOPS)
+    # dk, dv need s, dp, dv and dk; q, k, v, g, lse, delta in, dk, dv out
+    b_dkdv = roofline(8.0 * work, 6.0 * act + 2 * stat, PEAK_BF16_FLOPS)
+    shape = f"{(B, S, H)} bf16"
+    log(f"[train] mha_packed_trainable forward + backward at {shape}: "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; bound {b_all['bound_ms']:.4f} ms "
+        f"({b_all['text']})")
+    log(f"[train] backward alone (mha_packed_bwd: bwd_dq + bwd_dkdv) at "
+        f"{shape}: {bwd_ms:.4f} ms (peak {bwd_peak_gb:.3f} GB above its "
+        f"inputs), plain _mha_packed_bwd {bwd_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention's backward {bwd_library_ms:.4f} ms; "
+        f"bound {b_bwd['bound_ms']:.4f} ms ({b_bwd['text']})")
+    log(f"[train] mha_packed_lse {lse_ms:.4f} ms (mha_packed "
+        f"{packed_ms:.4f} ms in this phase), plain {lse_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention forward {fwd_library_ms:.4f} ms; "
+        f"bound {b_lse['bound_ms']:.4f} ms ({b_lse['text']})")
+    log(f"[train] bwd_dq {dq_ms:.4f} ms, plain {dq_plain_ms:.4f} ms, bound "
+        f"{b_dq['bound_ms']:.4f} ms ({b_dq['text']}); bwd_dkdv "
+        f"{dkdv_ms:.4f} ms, plain {dkdv_plain_ms:.4f} ms, bound "
+        f"{b_dkdv['bound_ms']:.4f} ms ({b_dkdv['text']})")
+
+    def record(name, source, replaces, err, ms_, plain_, b, library):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "max_abs_err": err, "ms": ms_,
+                "plain_ms": plain_, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": library}
+
+    trainable_rec = record(
+        "mha_packed_trainable", f"{KERNEL_SOURCE} + {BWD_SOURCE}",
+        TRAINABLE_REPLACES, errs["trainable"], ms, plain_ms, b_all,
+        library_ms)
+    trainable_rec.update(bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+                         bwd_bound_ms=b_bwd["bound_ms"],
+                         bwd_library_ms=bwd_library_ms,
+                         bwd_peak_gb=bwd_peak_gb)
+    return [
+        record("mha_packed_lse", KERNEL_SOURCE,
+               "zenker_audio_detection_tpu/ops/attention.py:437",
+               errs["lse"], lse_ms, lse_plain_ms, b_lse, fwd_library_ms),
+        record("mha_packed_bwd_dq", BWD_SOURCE, BWD_REPLACES, errs["dq"],
+               dq_ms, dq_plain_ms, b_dq, None),
+        record("mha_packed_bwd_dkdv", BWD_SOURCE, BWD_REPLACES,
+               errs["dkdv"], dkdv_ms, dkdv_plain_ms, b_dkdv, None),
+        trainable_rec]
 
 
-def phase_train(A, ast_mod, torch) -> int:
+def phase_train(A, ast_mod, torch) -> dict:
     """Training at full width: the "kernel" route (mha_packed_trainable)
     and the "torch" route (train.steps.make_train_step) from the same
-    weights on the same fixed batch. Returns the mha_packed launches of the
+    weights on the same fixed batch. Returns the launch counts of the
     kernel route."""
     from zenker_audio_detection_tpu_torch.train import losses, optim, steps
 
@@ -795,22 +998,28 @@ def phase_train(A, ast_mod, torch) -> int:
     # ---- the training path: counts zeroed just before, read just after ----
     zero_counts(A)
     torch.cuda.synchronize()
-    k_losses, k_ms, g_kernel = run("kernel")
+    with no_plain_versions(A):
+        k_losses, k_ms, g_kernel = run("kernel")
     launches = counts(A)
     # ------------------------------------------------------------------------
     k_peak = torch.cuda.max_memory_allocated() / 1e9
     t_losses, t_ms, _ = run("torch")
     t_launches = counts(A)
-    # per step: the forward and its recomputation under remat; then the
-    # forward that reads the loss after the last step
-    expected = TRAIN_STEPS * 2 * cfg.num_hidden_layers + cfg.num_hidden_layers
+    # per step, with a gradient: the forward and its recomputation under
+    # remat (the lse forward), one backward (both backward kernels); then the
+    # forward without a gradient that reads the loss after the last step
+    layers = cfg.num_hidden_layers
+    expected = {**{k: 0 for k in KERNELS}, "mha_packed": layers,
+                "mha_packed_lse": TRAIN_STEPS * 2 * layers,
+                "mha_packed_bwd_dq": TRAIN_STEPS * layers,
+                "mha_packed_bwd_dkdv": TRAIN_STEPS * layers}
     log(f"[train] launches on the kernel route: {launches} (expected "
-        f"mha_packed {expected} = {TRAIN_STEPS} steps x {cfg.num_hidden_layers}"
-        f" layers x (forward + recomputed forward under remat), + "
-        f"{cfg.num_hidden_layers} for the loss after the last step); after "
-        f"the torch route: {t_launches}")
-    if launches != {**{k: 0 for k in KERNELS}, "mha_packed": expected} \
-            or t_launches != launches:
+        f"{expected}: {TRAIN_STEPS} steps x {layers} layers x (forward + "
+        f"recomputed forward under remat: mha_packed_lse; one backward: "
+        f"bwd_dq, bwd_dkdv), + {layers} mha_packed for the loss after the "
+        f"last step; no plain version called); after the torch route: "
+        f"{t_launches}")
+    if launches != expected or t_launches != launches:
         raise AssertionError(f"launch counts {launches} / {t_launches} on "
                              f"the training path")
     grad_rel = rel_diff(g_kernel, g_torch)
@@ -833,7 +1042,7 @@ def phase_train(A, ast_mod, torch) -> int:
             raise AssertionError(f"{name} route: the loss did not fall: {ls}")
     if not (loss_err <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_REL_TOL):
         raise AssertionError("the kernel and torch training routes disagree")
-    return launches["mha_packed"]
+    return launches
 
 
 def phase_train_small_f32(ast_mod, torch) -> None:
@@ -924,12 +1133,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _cuda.build_all()
-    log(f"[build] {built} (nvcc seconds per source; 0 = already built), "
-        f"{time.perf_counter() - t0:.1f} s in all")
+    log(f"[build] {built} (nvcc seconds per source, run in parallel; 0 = "
+        f"already built), {time.perf_counter() - t0:.1f} s in all")
     for source in built:
         report = _cuda.library_path(source).with_suffix(".so.log").read_text()
         for line in report.splitlines():
-            if "Compiling entry function" in line or "Used" in line:
+            if any(w in line for w in ("Compiling entry function", "Used",
+                                       "spill")):
                 log(f"[build] {source}: {line.strip()}")
         if source == "attention":
             check_registers(report)
@@ -939,15 +1149,20 @@ def main() -> int:
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
     phase_small_f32(A, ast_mod, torch)
     phase_cli(A, C, ast_mod, torch)
-    trainable = phase_train_alone(A, torch)
-    trainable["launches"] = phase_train(A, ast_mod, torch)
-    records.append(trainable)
+    train_records = phase_train_alone(A, torch)
+    launches = phase_train(A, ast_mod, torch)
+    for r in train_records:  # the trainable's calls are its lse forwards
+        r["launches"] = launches[{"mha_packed_trainable": "mha_packed_lse"}
+                                 .get(r["name"], r["name"])]
+    records += train_records
     phase_train_small_f32(ast_mod, torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    # the keys every record has first, then a record's own (the backward's)
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **r}
+                                  for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -39,20 +39,25 @@ def _grads(params, x, cfg, **kw):
 
 
 def test_kernel_route_keeps_the_qkv_gradients(monkeypatch):
-    """On the card `mha_packed` fills a tensor through a ctypes call, which
-    has no grad_fn. A stand-in that does the same on the CPU: the "kernel"
-    route must still give the q, k and v projections the gradients of the
+    """On the card `mha_packed_lse`, the forward that runs when a gradient
+    is needed, fills its tensors through a ctypes call, which has no
+    grad_fn. A stand-in that does the same on the CPU: the "kernel" route
+    must still give the q, k and v projections the gradients of the
     "torch" route (f32, 1e-5), as the JAX "pallas" route does through its
     custom VJP."""
-    def opaque(q, k, v, *, num_heads):
-        with torch.no_grad():
-            return A.mha_packed_reference(q, k, v, num_heads)
+    calls = []
 
-    monkeypatch.setattr(A, "mha_packed", opaque)
+    def opaque(q, k, v, *, num_heads):
+        calls.append(num_heads)
+        with torch.no_grad():
+            return A.mha_packed_lse_reference(q, k, v, num_heads)
+
+    monkeypatch.setattr(A, "mha_packed_lse", opaque)
     cfg, params = _params(1)
     x = _features(2, 3, cfg)
     (want_loss, _), want = _grads(params, x, cfg, attention_impl="torch")
     (got_loss, _), got = _grads(params, x, cfg, attention_impl="kernel")
+    assert calls == [cfg.num_attention_heads] * cfg.num_hidden_layers
     assert abs(float(got_loss) - float(want_loss)) < 1e-6
     for name in ("q", "k", "v"):
         g, w = got["encoder"][name]["kernel"], want["encoder"][name]["kernel"]

@@ -167,7 +167,9 @@ def test_mha_packed_trainable_matches_jax(pallas_interpret):
 # plain forward passes bf16 gradients between the casts; the JAX-form
 # backward rounds p_b and ds once each). On these inputs the O(1.5)
 # gradients differed by at most 0.0078, two bf16 ulps; the bound is the
-# port's usual bf16 2e-2. f32: the same arithmetic, equal here to 1e-6.
+# port's usual bf16 2e-2. f32: the backward takes p from the row
+# log-sum-exp and sum_j p dp from the output, autograd from the softmax;
+# the same sums in another order, equal here to 1e-6.
 GRAD_TOL = {"float32": (1e-6, 0.0), "bfloat16": (2e-2, 0.0)}
 
 
@@ -196,10 +198,14 @@ def test_mha_packed_trainable_matches_autograd(dtype, B, S, NH, D):
 
 
 def test_mha_packed_trainable_keeps_no_score_residuals():
-    """Only q, k and v are saved for the backward; p is recomputed."""
+    """q, k, v, the output and the (B, NH, S) row log-sum-exp are saved
+    for the backward, nothing of (S, S) size; p is recomputed."""
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs(3, (1, 40, 64)))
     out = A.mha_packed_trainable(q, k, v, 2)
     saved = out.grad_fn.saved_tensors
-    assert len(saved) == 3
-    assert all(s.shape == q.shape for s in saved)
+    assert len(saved) == 5
+    assert [tuple(s.shape) for s in saved] == [tuple(q.shape)] * 4 + [
+        (1, 2, 40)]
+    assert all(s.numel() < 40 * 40 * 2 for s in saved[4:])
+    torch.testing.assert_close(saved[3], out.detach(), atol=0, rtol=0)

@@ -13,7 +13,12 @@
 //   mha_fused         <- _attn_kernel_fused    grid (q blocks, B), heads looped,
 //                                              one staged (rows, H) store
 // Each keeps its TPU counterpart's work decomposition; all of them run the
-// same flash body below, so they agree with each other row for row.
+// same flash body below, so they agree with each other row for row. One more
+// kernel runs that body for mha_packed_trainable's forward:
+//   mha_packed_lse    <- the forward of the custom VJP mha_packed_trainable
+//                        (_attn_kernel_packed under autograd); kPacked's grid
+//                        and output, bit for bit, plus each row's
+//                        log-sum-exp for the backward in attention_bwd.cu
 // Contract (reference_mha there): scores = q k^T / sqrt(D) accumulated in
 // f32, softmax in f32, p cast to the input dtype before the PV product, PV
 // accumulated in f32, output in the input dtype. A head's D lanes are read
@@ -133,7 +138,10 @@ struct Tiles<float, D, P> {
 //      a2 (row g, cols 2t+8..2t+9), a3 (row g+8, cols 2t+8..2t+9)
 //   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
 //   C: c0, c1 (row g, cols 2t..2t+1), c2, c3 (row g+8, same cols)
-template <int D, int W, int P = 1>
+// With kLse the tile also stores each row's log-sum-exp, m + log2(l) in the
+// log2 domain with the scale folded in, at lse[lbase + row] (rows < S);
+// the output is computed exactly as without it.
+template <int D, int W, int P = 1, bool kLse = false>
 __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
@@ -141,7 +149,9 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
                                      float scale_log2,
                                      Tiles<__nv_bfloat16, D, P>& sm,
                                      __nv_bfloat16* __restrict__ out,
-                                     ptrdiff_t obase, int ldo) {
+                                     ptrdiff_t obase, int ldo,
+                                     float* __restrict__ lse = nullptr,
+                                     size_t lbase = 0) {
   using Sm = Tiles<__nv_bfloat16, D, P>;
   constexpr int kThreads = 32 * W;
   static_assert(W % P == 0, "each head takes W / P warps");
@@ -255,7 +265,8 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = hp * D + n * 8 + 2 * t;
@@ -266,20 +277,26 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(out + (obase + (ptrdiff_t)r1 * ldo + c)) =
           pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
   }
+  if constexpr (kLse) {
+    if (t == 0 && r0 < S) lse[lbase + r0] = m0 + log2f(sum0);
+    if (t == 0 && r1 < S) lse[lbase + r1] = m1 + log2f(sum1);
+  }
 }
 
 // The same tile in f32: two threads per query row and head, each holding
 // D/2 of the D lanes of q and of the output; the partial dot products meet
 // through one shuffle. Keys are handled 16 at a time for the online softmax.
 // With P heads the first 32 * W / P threads take the first head, and so on.
-template <int D, int W, int P = 1>
+// kLse as in the bf16 tile.
+template <int D, int W, int P = 1, bool kLse = false>
 __device__ __forceinline__ void tile(const float* __restrict__ q,
                                      const float* __restrict__ k,
                                      const float* __restrict__ v,
                                      size_t base, int S, int ld, int q0,
                                      float scale_log2, Tiles<float, D, P>& sm,
                                      float* __restrict__ out, ptrdiff_t obase,
-                                     int ldo) {
+                                     int ldo, float* __restrict__ lse = nullptr,
+                                     size_t lbase = 0) {
   constexpr int kThreads = 32 * W, kHalf = D / 2, kLd = P * D;
   static_assert(W % P == 0, "each head takes W / P warps");
   static_assert((kBK * P * D / 4) % kThreads == 0,
@@ -359,6 +376,9 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
       *reinterpret_cast<float4*>(dst + i) =
           make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv,
                       acc[i + 3] * inv);
+    if constexpr (kLse) {
+      if (half == 0) lse[lbase + row] = m + log2f(l);
+    }
   }
 }
 
@@ -438,6 +458,43 @@ pairs_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 sm, o, base, H);
 }
 
+// mha_packed's forward for mha_packed_trainable, grid (q tiles, NH, B) as
+// kPacked: the same tile body in the same order, so o is mha_packed's bit
+// for bit, and each row's log-sum-exp goes to the (B, NH, S) f32 buffer lse
+// for the backward (csrc/attention_bwd.cu). A kernel of its own, so that
+// attn_kernel's instances stay as they were.
+template <typename T, int D>
+__global__ void __launch_bounds__(128, 4)
+lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+           int S, int NH, float scale_log2) {
+  __shared__ __align__(16) Tiles<T, D> sm;
+  const int H = NH * D;
+  const size_t base =
+      blockIdx.z * ((size_t)S * H) + (size_t)blockIdx.y * D;
+  const size_t lbase = ((size_t)blockIdx.z * NH + blockIdx.y) * S;
+  tile<D, 4, 1, true>(q, k, v, base, S, H, blockIdx.x * 64, scale_log2, sm,
+                      o, base, H, lse, lbase);
+}
+
+template <typename T>
+int launch_lse(const void* q, const void* k, const void* v, void* o,
+               void* lse, int S, int NH, int D, int gx, int gy, int gz,
+               int threads, int smem, void* stream) {
+  if (threads != 128 || smem != 0) return (int)cudaErrorInvalidValue;
+  void (*kern)(const T*, const T*, const T*, T*, float*, int, int, float);
+  if (D == 32)
+    kern = lse_kernel<T, 32>;
+  else if (D == 64)
+    kern = lse_kernel<T, 64>;
+  else
+    return (int)cudaErrorInvalidValue;
+  kern<<<dim3(gx, gy, gz), threads, 0, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, S, NH,
+      kLog2e / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, int W, int K>
 int launch(const void* q, const void* k, const void* v, void* o, int S,
            int NH, dim3 grid, int smem, cudaStream_t stream) {
@@ -513,3 +570,16 @@ ATTN_ENTRY(mha_qblock_bf16, __nv_bfloat16, kQBlock)
 ATTN_ENTRY(mha_qblock_f32, float, kQBlock)
 ATTN_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
 ATTN_ENTRY(mha_fused_f32, float, kFused)
+
+// mha_packed with the row log-sum-exp: as mha_packed's entry point, with
+// lse a device pointer to a contiguous (B, NH, S) f32 buffer.
+#define LSE_ENTRY(name, T)                                                   \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      void* lse, int S, int NH, int D, int gx, int gy,      \
+                      int gz, int threads, int smem, void* stream) {        \
+    return launch_lse<T>(q, k, v, o, lse, S, NH, D, gx, gy, gz, threads,    \
+                         smem, stream);                                      \
+  }
+
+LSE_ENTRY(mha_packed_lse_bf16, __nv_bfloat16)
+LSE_ENTRY(mha_packed_lse_f32, float)

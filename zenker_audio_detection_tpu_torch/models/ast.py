@@ -29,8 +29,9 @@ Numerics follow the JAX package:
     inside `full_f32()` too, as `train.steps` does, or cuDNN computes the
     patch convolution's weight gradient in TF32.
 Attention is `ops.attention.mha_packed_trainable` ("kernel", the
-counterpart of the JAX "pallas" route: the Hopper kernel forward, a plain
-backward) or the plain version ("torch", the counterpart of "xla").
+counterpart of the JAX "pallas" route: Hopper kernels forward and
+backward, `mha_packed` when no gradient is taken) or the plain version
+("torch", the counterpart of "xla").
 
 For training, `remat` recomputes each block's forward in the backward
 (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint` does, and
@@ -246,8 +247,8 @@ def _attention(x, lp, config: ASTConfig, impl: str):
     k = _dense(x, lp["k"]["kernel"], lp["k"]["bias"])
     v = _dense(x, lp["v"]["kernel"], lp["v"]["bias"])
     if impl == "kernel":
-        # the Hopper kernel forward with a plain backward, as the JAX
-        # "pallas" route calls its custom VJP
+        # Hopper kernels forward and backward, as the JAX "pallas" route
+        # calls its custom VJP
         ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
     else:
         ctx = attn_ops.mha_packed_reference(q, k, v, nh)

@@ -29,11 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points of each source: name -> number of pointer arguments before
 # the int arguments. Every entry point ends with (int..., void* stream) and
 # returns a cudaError_t as int.
+_DTYPES = ("bf16", "f32")
 _ENTRY_POINTS = {
-    "attention": {f"{fn}_{dtype}": (4, 8)
-                  for fn in ("mha_packed", "mha_pairs", "mha",
-                             "mha_batched_heads", "mha_qblock", "mha_fused")
-                  for dtype in ("bf16", "f32")},
+    "attention": {**{f"{fn}_{dtype}": (4, 8)
+                     for fn in ("mha_packed", "mha_pairs", "mha",
+                                "mha_batched_heads", "mha_qblock",
+                                "mha_fused")
+                     for dtype in _DTYPES},
+                  **{f"mha_packed_lse_{dtype}": (5, 8) for dtype in _DTYPES}},
+    "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8)
+                      for part in ("dq", "dkdv") for dtype in _DTYPES},
 }
 
 

@@ -11,15 +11,18 @@ Pallas kernel there:
   `_attn_kernel_fused`).
 
 `mha_packed_trainable` is `mha_packed` under autograd, the counterpart of
-the JAX custom VJP of that name: the forward is `mha_packed`, the backward
-recomputes the probabilities in plain PyTorch, as the JAX backward does in
-XLA.
+the JAX custom VJP of that name (whose backward is XLA): the forward is
+`mha_packed_lse` (`mha_packed`'s kernel that also keeps each row's
+log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
+`mha_packed_bwd_dkdv` (`csrc/attention_bwd.cu`), that recompute the
+probabilities tile by tile.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention.cu`; on CPU tensors each runs the plain PyTorch version
-(`reference_mha`, `mha_packed_reference`). There is no fallback from a
-kernel to the plain version on the card: a CUDA tensor the kernels do not
-take raises. A contiguous (B, S, NH, D) tensor is the same memory as packed
+`csrc/attention.cu` or `csrc/attention_bwd.cu`; on CPU tensors each runs
+the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
+`mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
+fallback from a kernel to the plain version on the card: a CUDA tensor the
+kernels do not take raises. A contiguous (B, S, NH, D) tensor is the same memory as packed
 (B, S, NH * D), so the kernels read a head's D lanes through strides and
 need none of the TPU wrappers' transposes or padding: keys past S are masked
 inside the kernel and query rows past S are not stored.
@@ -123,8 +126,10 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
     """The launch of entry point `kind` at (B, S, NH, D). Query blocks are
     counted with `cdiv`, so the last, ragged one is launched too."""
     rows, smem, heads = _TILE_ROWS, 0, 1
-    if kind == "mha_packed":
-        grid = (cdiv(S, rows), NH, B)
+    if kind in ("mha_packed", "mha_packed_lse", "mha_packed_bwd_dq"):
+        grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
+    elif kind == "mha_packed_bwd_dkdv":
+        grid = (cdiv(S, rows), NH, B)  # 64-key tiles: rows are keys here
     elif kind == "mha_pairs":
         # one block per (q tile, head pair, batch element); its K/V tiles
         # hold both heads' lanes and live in dynamic shared memory (the f32
@@ -179,6 +184,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
                          f"{q.device}")
 
 
+def _check_layout(align: int, **tensors: torch.Tensor) -> None:
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+
+
 def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   num_heads: int) -> None:
     """What the CUDA kernels take: D in KERNEL_HEAD_DIMS, contiguous and
@@ -187,11 +200,30 @@ def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernels take head widths "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_layout(16, q=q, k=k, v=v)
+
+
+def _check_heads(q: torch.Tensor, num_heads: int) -> None:
+    if num_heads < 1 or q.shape[2] % num_heads:
+        raise ValueError(f"H={q.shape[2]} does not split into "
+                         f"num_heads={num_heads} heads")
+
+
+def _suffix(x: torch.Tensor) -> str:
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
+def _run(source: str, fn_name: str, tensors, ints, device) -> None:
+    """Calls C entry point `fn_name` of `csrc/<source>.cu` with the tensors'
+    device pointers, the ints and the current stream; raises if the launch
+    failed."""
+    fn = getattr(_cuda.load(source), fn_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(x.data_ptr() for x in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
+                           f"{err}")
 
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,14 +232,8 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel(q, k, v, NH)
     geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q)
     out = torch.empty_like(q)
-    suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    fn = getattr(_cuda.load("attention"), f"{kind}_{suffix}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 S, NH, D, *geo.grid, geo.threads, geo.smem, stream)
-    if err:
-        raise RuntimeError(f"{kind} kernel launch failed: cudaError_t {err}")
+    _run("attention", f"{kind}_{_suffix(q)}", (q, k, v, out),
+         (S, NH, D, *geo.grid, geo.threads, geo.smem), q.device)
     return out
 
 
@@ -220,9 +246,7 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tile, head and batch element; CPU tensors go to `mha_packed_reference`.
     Each kernel launch adds one to `mha_packed.launches`."""
     _check(q, k, v, "mha_packed", 3)
-    if num_heads < 1 or q.shape[2] % num_heads:
-        raise ValueError(f"H={q.shape[2]} does not split into "
-                         f"num_heads={num_heads} heads")
+    _check_heads(q, num_heads)
     if q.device.type == "cpu":
         return mha_packed_reference(q, k, v, num_heads)
     B, S, H = q.shape
@@ -248,9 +272,7 @@ def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, "mha_pairs", 3)
     if block_q < 1:
         raise ValueError(f"block_q must be at least 1, got {block_q}")
-    if num_heads < 1 or q.shape[2] % num_heads:
-        raise ValueError(f"H={q.shape[2]} does not split into "
-                         f"num_heads={num_heads} heads")
+    _check_heads(q, num_heads)
     if num_heads % _PAIR_HEADS:
         return mha_packed(q, k, v, num_heads=num_heads)
     if q.device.type == "cpu":
@@ -268,14 +290,8 @@ def _mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     product accumulates in f32 and each gradient is cast to the input
     dtype. bf16 operands are widened to f32 before a product, as in
     `reference_mha`: exact products, f32 sums."""
-    B, S, H = q.shape
-    D = H // num_heads
-    scale = 1.0 / math.sqrt(D)
-
-    def heads(x):  # (B, S, H) -> (B, NH, S, D) in f32
-        return x.reshape(B, S, num_heads, D).transpose(1, 2).float()
-
-    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
+    qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, g))
+    scale = 1.0 / math.sqrt(qh.shape[-1])
     p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
     p_b = p.to(q.dtype).float()
     dv = torch.matmul(p_b.transpose(-1, -2), gh).to(q.dtype)
@@ -286,37 +302,251 @@ def _mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = (ds * scale).to(q.dtype).float()
     dq = torch.matmul(ds, kh).to(q.dtype)
     dk = torch.matmul(ds.transpose(-1, -2), qh).to(q.dtype)
+    return _packed(dq), _packed(dk), _packed(dv)
 
-    def packed(x):  # (B, NH, S, D) -> (B, S, H)
-        return x.transpose(1, 2).reshape(B, S, H)
 
-    return packed(dq), packed(dk), packed(dv)
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, H) -> (B, NH, S, D) in f32."""
+    B, S, H = x.shape
+    return x.reshape(B, S, num_heads, H // num_heads).transpose(1, 2).float()
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """(B, NH, S, D) -> (B, S, NH * D)."""
+    B, NH, S, D = x.shape
+    return x.transpose(1, 2).reshape(B, S, NH * D)
+
+
+def _scale_log2(D: int) -> float:
+    """log2(e) / sqrt(D): scores times this are in the log2 domain, where
+    the kernels keep the softmax's maximum and log-sum-exp."""
+    return math.log2(math.e) / math.sqrt(D)
+
+
+def mha_packed_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, num_heads: int):
+    """Plain version of `mha_packed_lse`: (`mha_packed_reference`'s output,
+    lse), lse the (B, NH, S) f32 log-sum-exp of each query row's scores in
+    the log2 domain, log2 sum_j 2^(s_ij log2(e) / sqrt(D)) with s = q k^T,
+    which is the natural log-sum-exp of s / sqrt(D) times log2(e)."""
+    qh, kh = _heads(q, num_heads), _heads(k, num_heads)
+    x = torch.matmul(qh, kh.transpose(-1, -2)) * _scale_log2(qh.shape[-1])
+    m = x.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(x - m).sum(dim=-1, keepdim=True))
+    return mha_packed_reference(q, k, v, num_heads), lse.squeeze(-1)
+
+
+def _delta_reference(o: torch.Tensor, g: torch.Tensor,
+                     num_heads: int) -> torch.Tensor:
+    """delta = sum_d g o per query row and head, (B, NH, S) f32: the
+    sum_j p dp of the softmax backward, from the forward's output."""
+    return (_heads(g, num_heads) * _heads(o, num_heads)).sum(dim=-1)
+
+
+def _probs_and_ds(qh, kh, vh, gh, lse, delta, dtype):
+    """The backward kernels' p = 2^(s log2(e) / sqrt(D) - lse) in f32, from
+    the forward's lse, and ds_b = (p (g v^T - delta) / sqrt(D)) rounded to
+    the input dtype, on (B, NH, S, D) f32 heads."""
+    D = qh.shape[-1]
+    p = torch.exp2(torch.matmul(qh, kh.transpose(-1, -2)) * _scale_log2(D)
+                   - lse.unsqueeze(-1))
+    ds = p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta.unsqueeze(-1))
+    return p, (ds * (1.0 / math.sqrt(D))).to(dtype).float()
+
+
+def mha_packed_bwd_dq_reference(q, k, v, o, lse, g, num_heads: int):
+    """Plain version of `mha_packed_bwd_dq`: (dq, delta), delta =
+    `_delta_reference(o, g)`, dq = ds_b k accumulated in f32 and cast to
+    the input dtype."""
+    qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, g))
+    delta = _delta_reference(o, g, num_heads)
+    _, ds = _probs_and_ds(qh, kh, vh, gh, lse, delta, q.dtype)
+    return _packed(torch.matmul(ds, kh)).to(q.dtype), delta
+
+
+def mha_packed_bwd_dkdv_reference(q, k, v, g, lse, delta, num_heads: int):
+    """Plain version of `mha_packed_bwd_dkdv`: (dk, dv), dv = bf16(p)^T g
+    (p rounded to the input dtype) and dk = ds_b^T q, each accumulated in
+    f32 and cast to the input dtype."""
+    qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, g))
+    p, ds = _probs_and_ds(qh, kh, vh, gh, lse, delta, q.dtype)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gh)
+    del p
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return _packed(dk).to(q.dtype), _packed(dv).to(q.dtype)
+
+
+def mha_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, g: torch.Tensor,
+                             num_heads: int):
+    """Plain version of the two backward kernels in turn: their algorithm
+    with the JAX casts (p from the forward's lse, delta from its output o,
+    `_probs_and_ds`). Returns (dq, dk, dv), packed (B, S, H)."""
+    dq, delta = mha_packed_bwd_dq_reference(q, k, v, o, lse, g, num_heads)
+    return (dq, *mha_packed_bwd_dkdv_reference(q, k, v, g, lse, delta,
+                                               num_heads))
+
+
+def mha_packed_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   num_heads: int):
+    """`mha_packed` that also keeps each query row's log-sum-exp for the
+    backward: returns (o, lse), lse (B, NH, S) f32 as
+    `mha_packed_lse_reference` defines it.
+
+    CUDA tensors go to `csrc/attention.cu:lse_kernel`, `mha_packed`'s tile
+    body and grid, so o is `mha_packed`'s output bit for bit; CPU tensors to
+    `mha_packed_lse_reference`. Each kernel launch adds one to
+    `mha_packed_lse.launches`."""
+    _check(q, k, v, "mha_packed_lse", 3)
+    _check_heads(q, num_heads)
+    if q.device.type == "cpu":
+        return mha_packed_lse_reference(q, k, v, num_heads)
+    B, S, H = q.shape
+    D = H // num_heads
+    _check_kernel(q, k, v, num_heads)
+    geo = launch_geometry("mha_packed_lse", B, S, num_heads, D,
+                          q.element_size())
+    o = torch.empty_like(q)
+    lse = torch.empty(B, num_heads, S, dtype=torch.float32, device=q.device)
+    _run("attention", f"mha_packed_lse_{_suffix(q)}", (q, k, v, o, lse),
+         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    mha_packed_lse.launches += 1
+    return o, lse
+
+
+def _check_bwd(what: str, q, k, v, num_heads: int, acts: dict,
+               stats: dict) -> None:
+    """The backward's operands: q, k, v as `mha_packed` takes them; `acts`
+    (o, g) of q's shape, dtype and device; `stats` (lse, delta) (B, NH, S)
+    f32 on q's device."""
+    _check(q, k, v, what, 3)
+    _check_heads(q, num_heads)
+    B, S, _ = q.shape
+    for name, x in acts.items():
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{what}: {name} must match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    for name, x in stats.items():
+        if (x.shape != (B, num_heads, S) or x.dtype != torch.float32
+                or x.device != q.device):
+            raise ValueError(f"{what}: {name} must be ({B}, {num_heads}, "
+                             f"{S}) float32 on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if q.device.type == "cuda":
+        _check_bwd_kernel(q, k, v, num_heads, acts, stats)
+
+
+def _check_bwd_kernel(q, k, v, num_heads: int, acts: dict,
+                      stats: dict) -> None:
+    """What the backward kernels take beyond `_check_bwd`: D in
+    KERNEL_HEAD_DIMS, contiguous tensors, 16-byte aligned activations and
+    4-byte aligned lse and delta."""
+    _check_kernel(q, k, v, num_heads)
+    _check_layout(16, **acts)
+    _check_layout(4, **stats)
+
+
+def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                      num_heads: int):
+    """The first backward kernel: returns (dq, delta), delta the (B, NH, S)
+    f32 row sums sum_d g o that `mha_packed_bwd_dkdv` reads. o and lse are
+    `mha_packed_lse`'s, g the output's gradient (all packed (B, S, H)).
+
+    CUDA tensors go to `csrc/attention_bwd.cu:dq_kernel`, one block per
+    64-row query tile, head and batch element; CPU tensors to the plain
+    version. Each kernel launch adds one to `mha_packed_bwd_dq.launches`."""
+    _check_bwd("mha_packed_bwd_dq", q, k, v, num_heads, {"o": o, "g": g},
+               {"lse": lse})
+    if q.device.type == "cpu":
+        return mha_packed_bwd_dq_reference(q, k, v, o, lse, g, num_heads)
+    B, S, H = q.shape
+    D = H // num_heads
+    geo = launch_geometry("mha_packed_bwd_dq", B, S, num_heads, D,
+                          q.element_size())
+    dq = torch.empty_like(q)
+    delta = torch.empty(B, num_heads, S, dtype=torch.float32,
+                        device=q.device)
+    _run("attention_bwd", f"mha_packed_bwd_dq_{_suffix(q)}",
+         (q, k, v, o, lse, g, dq, delta),
+         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    mha_packed_bwd_dq.launches += 1
+    return dq, delta
+
+
+def mha_packed_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, *, num_heads: int):
+    """The second backward kernel: returns (dk, dv) from the forward's lse
+    and `mha_packed_bwd_dq`'s delta.
+
+    CUDA tensors go to `csrc/attention_bwd.cu:dkdv_kernel`, one block per
+    64-key tile, head and batch element; CPU tensors to the plain version.
+    Each kernel launch adds one to `mha_packed_bwd_dkdv.launches`."""
+    _check_bwd("mha_packed_bwd_dkdv", q, k, v, num_heads, {"g": g},
+               {"lse": lse, "delta": delta})
+    if q.device.type == "cpu":
+        return mha_packed_bwd_dkdv_reference(q, k, v, g, lse, delta,
+                                             num_heads)
+    B, S, H = q.shape
+    D = H // num_heads
+    geo = launch_geometry("mha_packed_bwd_dkdv", B, S, num_heads, D,
+                          q.element_size())
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    _run("attention_bwd", f"mha_packed_bwd_dkdv_{_suffix(q)}",
+         (q, k, v, g, lse, delta, dk, dv),
+         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    mha_packed_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                   num_heads: int):
+    """(dq, dk, dv) of `mha_packed` at output gradient g: on the card
+    `mha_packed_bwd_dq`, then `mha_packed_bwd_dkdv`, on the current stream;
+    on the CPU `mha_packed_bwd_reference`."""
+    if q.device.type == "cpu":
+        _check_bwd("mha_packed_bwd", q, k, v, num_heads, {"o": o, "g": g},
+                   {"lse": lse})
+        return mha_packed_bwd_reference(q, k, v, o, lse, g, num_heads)
+    dq, delta = mha_packed_bwd_dq(q, k, v, o, lse, g, num_heads=num_heads)
+    return (dq, *mha_packed_bwd_dkdv(q, k, v, g, lse, delta,
+                                     num_heads=num_heads))
 
 
 class _MhaPackedTrainable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_heads):
+        o, lse = mha_packed_lse(q, k, v, num_heads=num_heads)
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v)
-        return mha_packed(q, k, v, num_heads=num_heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return (*_mha_packed_bwd(q, k, v, g, ctx.num_heads), None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*mha_packed_bwd(q, k, v, o, lse, g.contiguous(),
+                                num_heads=ctx.num_heads), None)
 
 
 def mha_packed_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """`mha_packed` with a gradient, the JAX custom VJP of the same name.
 
-    The forward is `mha_packed` (its Hopper kernel on the card, counted in
-    `mha_packed.launches`; the plain version on the CPU) and saves q, k and
-    v only. The backward is plain PyTorch on (B, NH, S, S), as the JAX
-    backward is XLA: it recomputes p and forms dv, dp, ds = p (dp - sum p
-    dp), dq and dk (`_mha_packed_bwd`). At the AST's training shape (16,
-    1214, 768) each (B, NH, S, S) f32 tensor it makes is 1.13 GB."""
-    return _MhaPackedTrainable.apply(q, k, v, num_heads)
+    When a gradient is needed (grad mode on and q, k or v requiring one),
+    the forward is `mha_packed_lse` and saves q, k, v, its output o and the
+    row log-sum-exp: nothing of (S, S) size. The backward is
+    `mha_packed_bwd`: on the card the two flash kernels of
+    `csrc/attention_bwd.cu`, which recompute p tile by tile from the lse, on
+    the CPU their plain version. Otherwise (no grad, inference mode) it is
+    `mha_packed` and saves nothing. The JAX-form plain backward
+    `_mha_packed_bwd` is the yardstick the tests hold it to."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _MhaPackedTrainable.apply(q, k, v, num_heads)
+    return mha_packed(q, k, v, num_heads=num_heads)
 
 
 def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -381,6 +611,7 @@ def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 for _entry in (mha_packed, mha_pairs, mha, mha_batched_heads, mha_qblock,
-               mha_fused):
+               mha_fused, mha_packed_lse, mha_packed_bwd_dq,
+               mha_packed_bwd_dkdv):
     _entry.launches = 0
 del _entry
