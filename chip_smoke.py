@@ -13,6 +13,9 @@ fails the run loudly:
   2. build: compiles every kernel source with nvcc (one per source, in
      parallel), prints each instance's registers and spills and checks
      that the bf16 D=64 mha_packed instance keeps to 128 (16 warps per SM);
+     prints the CTAs per SM the card fits of every instance of
+     csrc/attention_pipelined.cu and fails below the number that
+     launch_geometry's grid assumes;
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, then times kernel, plain version
      and PyTorch's scaled_dot_product_attention (the yardstick; the port
@@ -22,8 +25,12 @@ fails the run loudly:
      (128, 146, 12, 64) bf16 with the launch counters zeroed just before
      and read just after; each held against reference_mha there, at the
      JAX tests' shapes and block_q values, at the AST shapes in bf16 and
-     f32, and on a poisoned tail (keys past S must not be read); then
-     timed like mha_packed;
+     f32, and on a poisoned tail (keys past S must not be read); the two
+     pipelined kernels (mha_batched_heads, mha_fused) also at B=1 (fewer
+     work items than SMs), B=3, NH 1, 3 (an odd last pair) and 28 (past the
+     width a staged output tile would allow), D=32 bf16 and bf16 poisoned
+     tails; then
+     timed like mha_packed, the pipelined two in f32 too;
   3c. mha_pairs: its own path, (128, 1214, 768) and (128, 146, 768) bf16
      with 12 heads, counts zeroed just before and read just after (2
      mha_pairs launches, no other); held against mha_packed_reference at
@@ -137,6 +144,20 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
 KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
+# mha_batched_heads and mha_fused: the cp.async ring and wgmma body
+PIPELINED = ("mha_batched_heads", "mha_fused")
+PIPELINED_SOURCE = ("zenker_audio_detection_tpu_torch/csrc/"
+                    "attention_pipelined.cu")
+# their own cases against reference_mha, (B, S, NH, D) and dtypes: B=1 has
+# fewer work items than SMs, B=3 a count that is no multiple of the grid,
+# NH=3 leaves mha_fused's last pair one head, NH=28 is past the width at
+# which a staged (64, NH * D) output tile would outgrow shared memory
+PIPELINED_CASES = (
+    [((1, 1214, 12, 64), dt) for dt in ("bfloat16", "float32")]
+    + [((3, 1214, 12, 64), "bfloat16")]
+    + [((2, 300, nh, 64), dt) for nh in (1, 3) for dt in ("bfloat16", "float32")]
+    + [((1, 300, 28, 64), dt) for dt in ("bfloat16", "float32")]
+    + [((2, 300, 4, 32), "bfloat16")])
 BWD_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_bwd.cu"
 # the JAX custom VJP mha_packed_trainable and its XLA backward
 TRAINABLE_REPLACES = "zenker_audio_detection_tpu/ops/attention.py:422"
@@ -334,18 +355,35 @@ def phase_entry_points(A, torch) -> list:
             require_close(f"{name} {shape} {dtype} block_q={bq}", out, ref,
                           dtype)
 
+    for shape, dt in PIPELINED_CASES:
+        dtype = getattr(torch, dt)
+        x = qkv(shape, dtype)
+        ref = A.reference_mha(*x)
+        for name in PIPELINED:
+            out = fns[name](*x)
+            torch.cuda.synchronize()
+            err = require_close(f"{name} {shape} {dtype}", out, ref, dtype)
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs[name], err)
+        del x, ref
+
     # the poisoned tail: keys and values past S hold 1e4; a kernel that
-    # reads or fails to mask them moves every softmax row
-    bufs = qkv((1, 128, 2, 32), torch.float32)
-    for b in bufs:
-        b[:, 65:] = 1e4
-    views = [b[:, :65] for b in bufs]  # contiguous at B = 1
-    ref = A.reference_mha(*(v.clone() for v in views))
-    for name, fn in fns.items():
-        out = fn(*views)
-        torch.cuda.synchronize()
-        require_close(f"{name} poisoned tail (1, 65, 2, 32) f32", out, ref,
-                      torch.float32)
+    # reads or fails to mask them moves every softmax row (bf16: the
+    # pipelined kernels' zero-filled copies; NH=3, mha_fused's lone last
+    # head at the end of each row)
+    for shape, dtype in (((1, 128, 2, 32), torch.float32),
+                         ((1, 128, 2, 32), torch.bfloat16),
+                         ((1, 128, 3, 64), torch.bfloat16)):
+        bufs = qkv(shape, dtype)
+        for b in bufs:
+            b[:, 65:] = 1e4
+        views = [b[:, :65] for b in bufs]  # contiguous at B = 1
+        ref = A.reference_mha(*(v.clone() for v in views))
+        for name, fn in fns.items():
+            out = fn(*views)
+            torch.cuda.synchronize()
+            require_close(f"{name} poisoned tail (1, 65, {shape[2]}, "
+                          f"{shape[3]}) {dtype}", out, ref, dtype)
 
     # ---- times at the AST width, bf16 ----
     B, S, NH, D = ENTRY_SHAPES[0]
@@ -363,11 +401,32 @@ def phase_entry_points(A, torch) -> list:
             f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['text']})")
         records.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": PIPELINED_SOURCE if name in PIPELINED else KERNEL_SOURCE,
             "replaces": ENTRY_POINTS[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": library_ms})
+    del full, q, k, v, heads
+    x32 = qkv(ENTRY_SHAPES[0], torch.float32)
+    b32 = bound(B, S, NH, D, 4)
+    for r in records:
+        if r["name"] in PIPELINED:
+            r["f32_ms"] = median_ms(lambda: fns[r["name"]](*x32))
+            r["f32_bound_ms"] = b32["bound_ms"]
+            log(f"[entry] timing {r['name']} at {(B, S, NH, D)} f32: kernel "
+                f"{r['f32_ms']:.4f} ms; bound {b32['bound_ms']:.4f} ms "
+                f"({b32['text']})")
+    del x32
+    # one batch element: 120 work items of mha_batched_heads on 132 SMs,
+    # 19 CTAs of mha_fused (all heads of one query block each)
+    x1 = qkv((1, S, NH, D), torch.bfloat16)
+    b1 = bound(1, S, NH, D, 2)
+    for r in records:
+        if r["name"] in PIPELINED:
+            r["b1_ms"] = median_ms(lambda: fns[r["name"]](*x1))
+            log(f"[entry] timing {r['name']} at {(1, S, NH, D)} bf16: kernel "
+                f"{r['b1_ms']:.4f} ms; bound {b1['bound_ms']:.4f} ms")
     return records
 
 
@@ -1112,6 +1171,28 @@ def check_registers(report: str) -> None:
     raise AssertionError("no mha_packed bf16 D=64 instance in the report")
 
 
+def check_occupancy(A) -> dict:
+    """Every instance of csrc/attention_pipelined.cu must fit on an SM as
+    many times as launch_geometry's grid assumes (a register creep past the
+    launch bounds or more shared memory would lower it); returns
+    {name: {dtype: {D: CTAs per SM}}}."""
+    found = {}
+    for name in PIPELINED:
+        for itemsize, dtype in ((2, "bf16"), (4, "f32")):
+            for D in A.KERNEL_HEAD_DIMS:
+                geo = A.launch_geometry(name, 1, 64, 1, D, itemsize)
+                ctas = A.pipelined_occupancy(name, itemsize, D)
+                found.setdefault(name, {}).setdefault(dtype, {})[D] = ctas
+                log(f"[build] {name} {dtype} D={D}: {ctas} CTAs per SM "
+                    f"({geo.threads} threads, {geo.smem} B of shared memory; "
+                    f"the grid assumes {geo.ctas_per_sm})")
+                if ctas < geo.ctas_per_sm:
+                    raise AssertionError(
+                        f"{name} {dtype} D={D} fits {ctas} CTAs per SM, "
+                        f"fewer than the {geo.ctas_per_sm} its grid assumes")
+    return found
+
+
 def main() -> int:
     import torch
 
@@ -1143,9 +1224,14 @@ def main() -> int:
                 log(f"[build] {source}: {line.strip()}")
         if source == "attention":
             check_registers(report)
+    occupancy = check_occupancy(A)
 
     record = phase_kernel_vs_plain(A)
-    records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch)]
+    entry_records = phase_entry_points(A, torch)
+    for r in entry_records:
+        if r["name"] in PIPELINED:
+            r["ctas_per_sm"] = occupancy[r["name"]]
+    records = [record, *entry_records, phase_pairs(A, torch)]
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
     phase_small_f32(A, ast_mod, torch)
     phase_cli(A, C, ast_mod, torch)

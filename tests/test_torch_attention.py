@@ -71,13 +71,33 @@ def test_kernel_checks_head_width_and_layout():
     A._check_kernel(q, q, q, num_heads=3)       # D = 64 passes
 
 
-def test_kernel_library_is_keyed_by_its_source():
+def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
     lib = _cuda.library_path("attention")
     assert lib.parent == _cuda.BUILD_DIR
     assert lib.name.startswith("attention_") and lib.suffix == ".so"
     assert lib == _cuda.library_path("attention")  # stable for one source
     assert set(_cuda._ENTRY_POINTS) == {
         p.stem for p in _cuda.CSRC.glob("*.cu")}
+    # the key covers the headers a source includes: an edited header
+    # rebuilds every source that includes it, and an edited source only
+    # itself
+    assert [p.name for p in _cuda._sources("attention_pipelined")] == [
+        "attention_pipelined.cu", "flash_common.cuh"]
+    for path in _cuda.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    names = list(_cuda._ENTRY_POINTS)
+    before = {name: _cuda.library_path(name) for name in names}
+    assert before["attention"] == lib  # the same bytes, the same key
+    header = tmp_path / "flash_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {name: _cuda.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in names)
+    source = tmp_path / "attention_bwd.cu"
+    source.write_text(source.read_text() + "// edited\n")
+    again = {name: _cuda.library_path(name) for name in names}
+    assert [name for name in names if again[name] != after[name]] == [
+        "attention_bwd"]
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -72,31 +72,90 @@ def test_reference_mha_matches_jax(dtype, B, S, NH, D):
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
 
 
-def _tile_starts(kind, geo, S):
+def _walk(geo, B, S, NH):
+    """(b, h, first query row) of every work item of the persistent
+    `mha_batched_heads`, CTA by CTA, as csrc/attention_pipelined.cu:
+    batched_kernel walks them: CTA x takes items i = x + j * gridDim.x,
+    numbered batch-major, then head, then query block."""
+    nqb = A.cdiv(S, geo.rows)
+    items = B * NH * nqb
+    return [[(i // (NH * nqb), i // nqb % NH, i % nqb * geo.rows)
+             for i in range(x, items, geo.grid[0])]
+            for x in range(geo.grid[0])]
+
+
+def _tile_starts(kind, geo, B, S, NH):
     """The first query row of every tile the kernel computes, as
-    csrc/attention.cu:attn_kernel walks them."""
-    if kind in ("mha", "mha_batched_heads"):
+    csrc/attention.cu:attn_kernel and csrc/attention_pipelined.cu walk
+    them."""
+    if kind == "mha":
         return range(0, S, geo.rows)  # each block loops over its tiles
+    if kind == "mha_batched_heads":
+        return sorted({s0 for cta in _walk(geo, B, S, NH)
+                       for _, _, s0 in cta})
     return [x * geo.rows for x in range(geo.grid[0])]
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("S,bq", QBLOCK_CASES)
 @pytest.mark.parametrize("kind", ("mha_packed",) + ENTRIES)
-def test_launch_geometry_covers_every_query_row(kind, S, bq):
+def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
     B, NH, D = 2, 4, 32
-    geo = A.launch_geometry(kind, B, S, NH, D, 4, block_q=bq)
-    assert geo.rows % 16 == 0 and geo.threads == 2 * geo.rows
-    starts = list(_tile_starts(kind, geo, S))
+    geo = A.launch_geometry(kind, B, S, NH, D, itemsize, block_q=bq)
+    # two threads per query row and head; bf16 mha_fused takes a head pair
+    pair = 2 if (kind, itemsize) == ("mha_fused", 2) else 1
+    assert geo.rows % 16 == 0 and geo.threads == 2 * geo.rows * pair
+    starts = list(_tile_starts(kind, geo, B, S, NH))
     covered = set()
     for s0 in starts:
         covered.update(range(s0, min(s0 + geo.rows, S)))
     assert covered == set(range(S))
     assert max(starts) < S  # no block is launched past the last row
-    # the other grid axes: one block per (batch, head) or per batch element
-    heads = {"mha_packed": B * NH, "mha": B * NH, "mha_batched_heads": B,
+    # the other grid axes: one block per (batch, head) or per batch element;
+    # mha_batched_heads' persistent grid is capped at sms x ctas_per_sm
+    heads = {"mha_packed": B * NH, "mha": B * NH, "mha_batched_heads": B * NH,
              "mha_qblock": B * NH, "mha_fused": B}[kind]
-    q_blocks = 1 if kind in ("mha", "mha_batched_heads") else len(starts)
-    assert np.prod(geo.grid) == q_blocks * heads
+    q_blocks = 1 if kind == "mha" else len(starts)
+    blocks = q_blocks * heads
+    if kind == "mha_batched_heads":
+        blocks = min(blocks, A.H100_SMS * geo.ctas_per_sm)
+    assert np.prod(geo.grid) == blocks
+
+
+@pytest.mark.parametrize("S", [1, 64, 146, 1214])
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("B", [1, 3, 128])
+def test_persistent_walk_covers_every_item_once(B, sms, S):
+    NH = 12
+    geo = A.launch_geometry("mha_batched_heads", B, S, NH, 64, 2, sms=sms)
+    walk = _walk(geo, B, S, NH)
+    seen = [it for cta in walk for it in cta]
+    want = {(b, h, q0) for b in range(B) for h in range(NH)
+            for q0 in range(0, S, 128)}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    # every CTA has work, and as many run as fit: sms x 2, or one per item
+    assert all(walk) and geo.grid[0] == min(len(want), 2 * sms)
+    # the CTAs that run at one time work on neighbouring batch elements
+    first_wave = [cta[0][0] for cta in walk]
+    assert max(first_wave) - min(first_wave) <= -(-2 * sms // (NH * A.cdiv(S, 128)))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("kind", ["mha_batched_heads", "mha_fused"])
+def test_pipelined_shared_memory_fits_its_ctas_per_sm(kind, itemsize, D):
+    """An SM has 228 KB of shared memory, of which each CTA also takes 1 KB
+    the system reserves, 65536 registers and 2048 threads: ctas_per_sm CTAs
+    fit with 128 registers a thread (the kernels' launch bounds) and at most
+    113 KB of shared memory each."""
+    geo = A.launch_geometry(kind, 128, 1214, 12, D, itemsize)
+    assert geo.ctas_per_sm * (geo.smem + 1024) <= 228 * 1024
+    assert geo.smem <= 113 * 1024
+    assert 65536 // (geo.threads * geo.ctas_per_sm) == 128
+    assert geo.ctas_per_sm >= 2 and geo.threads * geo.ctas_per_sm <= 2048
+    if itemsize == 2:  # the ring: 3 stages of K and V, one head or a pair
+        heads = 2 if kind == "mha_fused" else 1
+        assert geo.smem == 3 * 2 * heads * 64 * D * 2 + 1024
 
 
 @pytest.mark.parametrize("bq,rows", [(1, 64), (64, 64), (65, 128), (96, 128),
@@ -111,12 +170,35 @@ def test_qblock_rows(bq, rows):
 def test_fused_staging_fits_the_ast_width(itemsize):
     geo = A.launch_geometry("mha_fused", 128, 1214, 12, 64, itemsize)
     assert geo.grid == (19, 128, 1)
-    assert geo.smem + A._static_smem(64, itemsize) <= A.MAX_SHARED_BYTES
+    assert geo.smem <= A.MAX_SHARED_BYTES
+    # no (rows, NH * D) output tile is staged: the shared memory does not
+    # grow with the heads, so 28 heads (NH * D = 1792) fit too
+    wide = A.launch_geometry("mha_fused", 128, 1214, 28, 64, itemsize)
+    assert wide.smem == geo.smem and wide.grid == geo.grid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_fused_matches_jax_at_1792_lanes(dtype):
+    """NH * D = 1792, which the JAX mha_fused computes and a kernel staging
+    a (64, NH * D) output tile could not hold in shared memory; the port's
+    CPU path against the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    B, S, NH, D = 1, 70, 28, 64
+    qkv = _inputs(1792, (B, S, NH, D))
+    want = np.asarray(JA.mha_fused(*(jnp.asarray(x, dtype) for x in qkv),
+                                   interpret=True)).astype(np.float32)
+    got = A.mha_fused(*(torch.from_numpy(x).to(getattr(torch, dtype))
+                        for x in qkv))
+    assert got.shape == (B, S, NH, D)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("kind,args,match", [
-    ("mha_fused", (1, 64, 16, 64, 4), "shared memory"),   # f32, H = 1024
-    ("mha_fused", (1, 64, 28, 64, 2), "shared memory"),   # bf16, H = 1792
+    ("mha_fused", (70000, 64, 28, 64, 2), "grid"),        # B > 65535
+    ("mha_fused", (1, 64, 16, 48, 4), "head width"),      # D = 48
+    ("mha_batched_heads", (1, 64, 2, 32, 2, 256, 0), "sms"),
+    ("mha_batched_heads", (1, 64, 2, 128, 2), "head width"),
     ("mha_qblock", (1, 64, 70000, 32, 2), "grid"),        # B * NH > 65535
     ("mha_packed", (70000, 64, 1, 32, 2), "grid"),        # B > 65535
     ("mha_triples", (1, 64, 3, 32, 2), "no attention kernel"),
@@ -124,6 +206,11 @@ def test_fused_staging_fits_the_ast_width(itemsize):
 def test_launch_geometry_refuses(kind, args, match):
     with pytest.raises(ValueError, match=match):
         A.launch_geometry(kind, *args)
+
+
+def test_pipelined_occupancy_names_a_pipelined_kernel():
+    with pytest.raises(ValueError, match="no pipelined"):
+        A.pipelined_occupancy("mha_qblock", 2, 64)
 
 
 def test_launch_geometry_refuses_block_q_below_one():

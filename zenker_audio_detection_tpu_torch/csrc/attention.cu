@@ -1,6 +1,6 @@
 // Fused multi-head self-attention for the port's ops/attention.py.
 //
-// Replaces the six Pallas kernels of zenker_audio_detection_tpu/ops/
+// Replaces four of the six Pallas kernels of zenker_audio_detection_tpu/ops/
 // attention.py that compute one function on (B, S, NH, D), which is the same
 // memory as packed (B, S, H = NH * D):
 //   mha_packed        <- _attn_kernel_packed   grid (q tiles, NH, B)
@@ -8,10 +8,9 @@
 //                                              heads per block on one staged
 //                                              2 * D-lane K/V tile
 //   mha               <- _attn_kernel          grid (B * NH), q tiles looped
-//   mha_batched_heads <- _attn_kernel_batched  grid (B), heads x q tiles looped
 //   mha_qblock        <- _attn_kernel_qblock   grid (q blocks, B * NH)
-//   mha_fused         <- _attn_kernel_fused    grid (q blocks, B), heads looped,
-//                                              one staged (rows, H) store
+// (mha_batched_heads and mha_fused run the pipelined body of
+// attention_pipelined.cu.)
 // Each keeps its TPU counterpart's work decomposition; all of them run the
 // same flash body below, so they agree with each other row for row. One more
 // kernel runs that body for mha_packed_trainable's forward:
@@ -57,71 +56,16 @@
 // carried over. What it buys here is one staged 2 * D-lane tile (256 B a row
 // in bf16) for two heads: warps 0..W/2-1 take the first, the rest the second,
 // each reading its half of the tile. The first design aims at right and
-// simple. Double-buffered cp.async/TMA staging, wgmma and warp
-// specialisation are left for later work.
+// simple; attention_pipelined.cu has the body built for Hopper (a cp.async
+// ring and wgmma), which these decompositions do not use yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBK = 64;  // keys per shared-memory tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-enum Kind { kPacked, kPerHead, kPerBatch, kQBlock, kFused, kPairs };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// The shared-memory K/V tiles of one block: P heads' P * D contiguous lanes
-// of 64 keys. bf16 rows are padded by 8 elements, which keeps the fragment
-// reads free of bank conflicts (a row is 4 banks apart from the next at
-// either width).
-template <typename T, int D, int P = 1>
-struct Tiles;
-
-template <int D, int P>
-struct Tiles<__nv_bfloat16, D, P> {
-  static constexpr int kLdk = P * D + 8;  // k[key][d]
-  static constexpr int kLdv = kBK + 8;    // v[d][key], V transposed
-  __nv_bfloat16 k[kBK * kLdk];
-  __nv_bfloat16 v[P * D * kLdv];
-};
-
-template <int D, int P>
-struct Tiles<float, D, P> {
-  float k[kBK * P * D];  // k[key][d]
-  float v[kBK * P * D];  // v[key][d]
-};
+// The values keep the mangled names of the instances, which the build report
+// and chip_smoke.py's register check read.
+enum Kind { kPacked = 0, kPerHead = 1, kQBlock = 3, kPairs = 5 };
 
 // One tile of 16 * W / P query rows of P heads of one batch element, bf16.
 // Token 0, lane 0 of the first head is at q + base (and k, v + base), rows
@@ -132,13 +76,8 @@ struct Tiles<float, D, P> {
 // offset in advance: that keeps the D = 64 body at the registers it needs
 // without spilling.
 //
-// Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
-// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
-//   A: a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
-//      a2 (row g, cols 2t+8..2t+9), a3 (row g+8, cols 2t+8..2t+9)
-//   B: b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g)
-//   C: c0, c1 (row g, cols 2t..2t+1), c2, c3 (row g+8, same cols)
-// With kLse the tile also stores each row's log-sum-exp, m + log2(l) in the
+// The fragments are laid out as flash_common.cuh:mma_bf16 gives them, with
+// g = lane / 4 and t = lane % 4. With kLse the tile also stores each row's log-sum-exp, m + log2(l) in the
 // log2 domain with the scale folded in, at lse[lbase + row] (rows < S);
 // the output is computed exactly as without it.
 template <int D, int W, int P = 1, bool kLse = false>
@@ -283,105 +222,6 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The same tile in f32: two threads per query row and head, each holding
-// D/2 of the D lanes of q and of the output; the partial dot products meet
-// through one shuffle. Keys are handled 16 at a time for the online softmax.
-// With P heads the first 32 * W / P threads take the first head, and so on.
-// kLse as in the bf16 tile.
-template <int D, int W, int P = 1, bool kLse = false>
-__device__ __forceinline__ void tile(const float* __restrict__ q,
-                                     const float* __restrict__ k,
-                                     const float* __restrict__ v,
-                                     size_t base, int S, int ld, int q0,
-                                     float scale_log2, Tiles<float, D, P>& sm,
-                                     float* __restrict__ out, ptrdiff_t obase,
-                                     int ldo, float* __restrict__ lse = nullptr,
-                                     size_t lbase = 0) {
-  constexpr int kThreads = 32 * W, kHalf = D / 2, kLd = P * D;
-  static_assert(W % P == 0, "each head takes W / P warps");
-  static_assert((kBK * P * D / 4) % kThreads == 0,
-                "staging must divide evenly");
-  const int tid = threadIdx.x;
-  const int hp = P == 1 ? 0 : tid / (kThreads / P);
-  const int ht = P == 1 ? tid : tid % (kThreads / P);
-  const int half = ht & 1;
-  const int row = q0 + (ht >> 1);
-  const int lane0 = hp * D + half * kHalf;  // this thread's first lane
-  const size_t qo = base + (size_t)row * ld + lane0;
-
-  float qr[kHalf], acc[kHalf];
-#pragma unroll
-  for (int i = 0; i < kHalf; i += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S) x = *reinterpret_cast<const float4*>(q + qo + i);
-    qr[i] = x.x;
-    qr[i + 1] = x.y;
-    qr[i + 2] = x.z;
-    qr[i + 3] = x.w;
-    acc[i] = acc[i + 1] = acc[i + 2] = acc[i + 3] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < (kBK * P * D / 4) / kThreads; ++i) {
-      const int c = tid + kThreads * i;
-      const int key = c / (kLd / 4), d4 = (c % (kLd / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + key < S) {
-        const size_t off = base + (size_t)(k0 + key) * ld + d4;
-        kv = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(sm.k + key * kLd + d4) = kv;
-      *reinterpret_cast<float4*>(sm.v + key * kLd + d4) = vv;
-    }
-    __syncthreads();
-
-    for (int kb = 0; kb < kBK; kb += 16) {
-      float s[16];
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float* kr = sm.k + (kb + j) * kLd + lane0;
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < kHalf; ++i) part = fmaf(qr[i], kr[i], part);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        s[j] = k0 + kb + j < S ? part * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float c = exp2f(m - mx);
-      m = mx;
-      l *= c;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) acc[i] *= c;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = exp2f(s[j] - m);
-        l += p;
-        const float* vr = sm.v + (kb + j) * kLd + lane0;
-#pragma unroll
-        for (int i = 0; i < kHalf; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-      }
-    }
-  }
-
-  if (row < S) {
-    const float inv = 1.f / l;
-    float* dst = out + (obase + (ptrdiff_t)row * ldo + lane0);
-#pragma unroll
-    for (int i = 0; i < kHalf; i += 4)
-      *reinterpret_cast<float4*>(dst + i) =
-          make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv,
-                      acc[i + 3] * inv);
-    if constexpr (kLse) {
-      if (half == 0) lse[lbase + row] = m + log2f(l);
-    }
-  }
-}
-
 // One kernel per (dtype, D, W, decomposition). The block's tiles are
 // 16 * W query rows; the grid is the one ops/attention.py:launch_geometry
 // gives for the decomposition. The launch bounds hold a thread to 128
@@ -405,36 +245,17 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t base = b * seq + (size_t)h * D;
     tile<D, W>(q, k, v, base, S, H, blockIdx.x * R, scale_log2, sm, o, base,
                H);
-  } else if constexpr (K == kPerHead || K == kPerBatch) {
-    // grid (B * NH): one head, all its q tiles; grid (B): all heads, all tiles
-    const int b = K == kPerHead ? blockIdx.x / NH : blockIdx.x;
-    const int h_begin = K == kPerHead ? blockIdx.x % NH : 0;
-    const int h_end = K == kPerHead ? h_begin + 1 : NH;
+  } else {
+    // kPerHead, grid (B * NH): one head, all its q tiles. The loop over the
+    // one head keeps the code (and the registers and spills) these
+    // instances have had since they were measured.
+    const int b = blockIdx.x / NH;
+    const int h_begin = blockIdx.x % NH;
+    const int h_end = h_begin + 1;
     for (int h = h_begin; h < h_end; ++h) {
       const size_t base = b * seq + (size_t)h * D;
       for (int q0 = 0; q0 < S; q0 += R)
         tile<D, W>(q, k, v, base, S, H, q0, scale_log2, sm, o, base, H);
-    }
-  } else {
-    // kFused, grid (q blocks, B): every head of one q block into a staged
-    // (R, H) tile in dynamic shared memory, then whole H-wide rows out with
-    // 16-byte stores. Rows are padded by 16 bytes against bank conflicts.
-    extern __shared__ __align__(16) unsigned char dyn[];
-    T* o_s = reinterpret_cast<T*>(dyn);
-    constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte store
-    const int ldo = H + kVec;
-    const size_t base = blockIdx.y * seq;
-    const int q0 = blockIdx.x * R;
-    for (int h = 0; h < NH; ++h)  // row r of head h at o_s[(r - q0), h * D]
-      tile<D, W>(q, k, v, base + h * D, S, H, q0, scale_log2, sm, o_s,
-                 h * D - (ptrdiff_t)q0 * ldo, ldo);
-    __syncthreads();
-    const int per_row = H / kVec;
-    for (int c = threadIdx.x; c < R * per_row; c += 32 * W) {
-      const int lr = c / per_row, col = (c % per_row) * kVec;
-      if (q0 + lr < S)
-        *reinterpret_cast<uint4*>(o + base + (size_t)(q0 + lr) * H + col) =
-            *reinterpret_cast<const uint4*>(o_s + lr * ldo + col);
     }
   }
 }
@@ -518,7 +339,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int S,
 }
 
 // Picks the instance for (D, threads). mha_qblock has 4- and 8-warp tiles,
-// mha_pairs 8 warps only (4 per head), the others 4 warps.
+// mha_pairs 8 warps only (4 per head), mha_packed and mha 4 warps.
 template <typename T, int K>
 int dispatch(const void* q, const void* k, const void* v, void* o, int S,
              int NH, int D, int gx, int gy, int gz, int threads, int smem,
@@ -564,12 +385,8 @@ ATTN_ENTRY(mha_pairs_bf16, __nv_bfloat16, kPairs)
 ATTN_ENTRY(mha_pairs_f32, float, kPairs)
 ATTN_ENTRY(mha_bf16, __nv_bfloat16, kPerHead)
 ATTN_ENTRY(mha_f32, float, kPerHead)
-ATTN_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kPerBatch)
-ATTN_ENTRY(mha_batched_heads_f32, float, kPerBatch)
 ATTN_ENTRY(mha_qblock_bf16, __nv_bfloat16, kQBlock)
 ATTN_ENTRY(mha_qblock_f32, float, kQBlock)
-ATTN_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
-ATTN_ENTRY(mha_fused_f32, float, kFused)
 
 // mha_packed with the row log-sum-exp: as mha_packed's entry point, with
 // lse a device pointer to a contiguous (B, NH, S) f32 buffer.

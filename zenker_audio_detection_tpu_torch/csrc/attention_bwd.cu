@@ -58,91 +58,18 @@
 // synchronous staging, in the manner of the f32 forward body. They need
 // only be right.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int kT = 64;  // rows of a staged tile and of a block (4 warps x 16)
 constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // the f32 dot product of two pairs of bf16 values
 __device__ __forceinline__ float dot2(uint32_t a, uint32_t b) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
   const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
   return x.x * y.x + x.y * y.y;
-}
-
-// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 accumulate.
-// Fragment layout as in csrc/attention.cu, g = lane / 4, t = lane % 4:
-//   A: a0 (row g, cols 2t..2t+1), a1 (row g+8), a2 (row g, cols 2t+8..),
-//      a3 (row g+8, cols 2t+8..); B: b0 (rows 2t..2t+1, col g), b1 (rows
-//      2t+8..2t+9); C: c0, c1 (row g, cols 2t..2t+1), c2, c3 (row g+8).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed: lane l gives the address of row l % 8
-// of matrix l / 8 and receives, of matrix i, rows 2t and 2t+1 of column g
-// in r[i]. On a row-major tile whose rows are the k dimension, matrices 0
-// and 1 (rows r..r+7 and r+8..r+15, columns c..c+7) are the B fragment
-// (b0, b1) of an 8-column n-tile, and matrices 2 and 3 those of the next.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !ok (the source
-// is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// waits until at most one group (the tile being prefetched) is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Stages rows r0..r0+63 of one head (its D lanes at x + base, rows ld
@@ -263,7 +190,7 @@ dq_kernel(const __nv_bfloat16* __restrict__ q,
       stage<D>(sm.b[buf ^ 1], v, base, S, H, (j + 1) * kT);
     }
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* ks = sm.a[buf];
     const __nv_bfloat16* vs = sm.b[buf];
@@ -376,7 +303,7 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     const int buf = j & 1;
     if (j + 1 < tiles) stage_all(buf ^ 1, (j + 1) * kT);
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* qs = sm.x.a[buf];
     const __nv_bfloat16* gs = sm.x.b[buf];

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, into ``build/torch_kernels/`` at
-the repository root, and is keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+the repository root, and is keyed by a hash of the source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,20 +28,28 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C entry points of each source: name -> number of pointer arguments before
-# the int arguments. Every entry point ends with (int..., void* stream) and
-# returns a cudaError_t as int.
+# C entry points of each source: name -> (pointer arguments, int
+# arguments, whether a stream follows). A kernel's entry point takes
+# (void*..., int..., void* stream); every entry point returns an int, a
+# cudaError_t for a launch.
 _DTYPES = ("bf16", "f32")
 _ENTRY_POINTS = {
-    "attention": {**{f"{fn}_{dtype}": (4, 8)
+    "attention": {**{f"{fn}_{dtype}": (4, 8, True)
                      for fn in ("mha_packed", "mha_pairs", "mha",
-                                "mha_batched_heads", "mha_qblock",
-                                "mha_fused")
+                                "mha_qblock")
                      for dtype in _DTYPES},
-                  **{f"mha_packed_lse_{dtype}": (5, 8) for dtype in _DTYPES}},
-    "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8)
+                  **{f"mha_packed_lse_{dtype}": (5, 8, True)
+                     for dtype in _DTYPES}},
+    "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8, True)
                       for part in ("dq", "dkdv") for dtype in _DTYPES},
+    # the launches, then each instance's CTAs per SM (D, threads, smem)
+    "attention_pipelined": {
+        **{f"{fn}_{dtype}": (4, 9, True)
+           for fn in ("mha_batched_heads", "mha_fused") for dtype in _DTYPES},
+        **{f"{fn}_occupancy_{dtype}": (0, 3, False)
+           for fn in ("mha_batched_heads", "mha_fused") for dtype in _DTYPES}},
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -53,11 +63,25 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin directory on PATH)")
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another, in the order met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float]:
@@ -96,9 +120,9 @@ def build_all() -> dict[str, float]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = ctypes.CDLL(str(build(name)[0]))
-    for fn_name, (n_ptr, n_int) in _ENTRY_POINTS[name].items():
+    for fn_name, (n_ptr, n_int, stream) in _ENTRY_POINTS[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * stream)
         fn.restype = ctypes.c_int
     return lib

@@ -18,7 +18,9 @@ log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
 probabilities tile by tile.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention.cu` or `csrc/attention_bwd.cu`; on CPU tensors each runs
+`csrc/attention.cu`, `csrc/attention_pipelined.cu` (`mha_batched_heads` and
+`mha_fused`: a cp.async ring and wgmma, under decompositions that fill the
+card) or `csrc/attention_bwd.cu`; on CPU tensors each runs
 the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
 `mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
 fallback from a kernel to the plain version on the card: a CUDA tensor the
@@ -58,6 +60,11 @@ _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
 _QBLOCK_MAX_ROWS = 128  # mha_qblock's 8-warp tile
 _PAIR_HEADS = 2  # heads of one mha_pairs block
+# csrc/attention_pipelined.cu: the kernels of mha_batched_heads and mha_fused
+_PIPELINED = ("mha_batched_heads", "mha_fused")
+_RING_STAGES = 3  # bf16 K/V tiles in flight (kStages)
+_RING_ALIGN = 1024  # slack to align the ring for the 128-byte swizzle
+H100_SMS = 132  # SMs of an H100 SXM, the default of launch_geometry's sms
 
 
 def reference_mha(q: torch.Tensor, k: torch.Tensor,
@@ -94,12 +101,16 @@ def mha_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @dataclass(frozen=True)
 class Launch:
     """How one kernel call is cut: the CUDA grid, the threads of a block
-    (two per query row and head), the query rows of a block's tile and the
-    bytes of dynamic shared memory."""
+    (two per query row and head), the query rows of a block's tile (of a
+    work item for the persistent `mha_batched_heads`), the bytes of dynamic
+    shared memory and, for the kernels of `csrc/attention_pipelined.cu`, the
+    CTAs per SM the design assumes (`pipelined_occupancy` reads what the
+    card makes of it)."""
     grid: tuple[int, int, int]
     threads: int
     rows: int
     smem: int
+    ctas_per_sm: int | None = None
 
 
 def qblock_rows(block_q: int) -> int:
@@ -121,11 +132,50 @@ def _static_smem(D: int, itemsize: int, heads: int = 1) -> int:
     return itemsize * 2 * _TILE_KEYS * lanes
 
 
+def _pipelined(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
+               sms: int):
+    """(grid, rows, heads, smem, ctas_per_sm) of the kernels of
+    `csrc/attention_pipelined.cu`. bf16: two warpgroups
+    (256 threads), a ring of `_RING_STAGES` stages of 64-key K and V tiles
+    for one head (`mha_batched_heads`) or a head pair (`mha_fused`), 2 CTAs
+    per SM. f32: the FMA tile's K/V tiles of one head, 8 warps and 2 CTAs
+    per SM (`mha_batched_heads`) or 4 warps and 4 (`mha_fused`)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kind} is compiled for head widths "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if sms < 1:
+        raise ValueError(f"sms must be at least 1, got {sms}")
+    bf16, heads = itemsize == 2, 1
+    if bf16:
+        heads = _PAIR_HEADS if kind == "mha_fused" else 1
+        smem = (_RING_STAGES * 2 * heads * _TILE_KEYS * D * itemsize
+                + _RING_ALIGN)
+    else:
+        smem = _static_smem(D, itemsize)
+    if kind == "mha_batched_heads":
+        # persistent: sms x 2 CTAs walk the (batch, head, 128-row block)
+        # items, i = blockIdx.x + j * gridDim.x
+        rows, ctas = 2 * _TILE_ROWS, 2
+        items = B * NH * cdiv(S, rows)
+        if items > _MAX_GRID_X:
+            raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
+                             f"{items} work items, beyond a 32-bit count")
+        grid = (min(items, sms * ctas), 1, 1)
+    else:
+        # one CTA per (64-row query block, batch element), all heads
+        rows, ctas = _TILE_ROWS, 2 if bf16 else 4
+        grid = (cdiv(S, rows), B, 1)
+    return grid, rows, heads, smem, ctas
+
+
 def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
-                    itemsize: int, block_q: int = 256) -> Launch:
-    """The launch of entry point `kind` at (B, S, NH, D). Query blocks are
-    counted with `cdiv`, so the last, ragged one is launched too."""
-    rows, smem, heads = _TILE_ROWS, 0, 1
+                    itemsize: int, block_q: int = 256,
+                    sms: int = H100_SMS) -> Launch:
+    """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
+    card's SM count, which sizes `mha_batched_heads`' persistent grid.
+    Query blocks are counted with `cdiv`, so the last, ragged one is
+    launched too."""
+    rows, smem, heads, ctas = _TILE_ROWS, 0, 1, None
     if kind in ("mha_packed", "mha_packed_lse", "mha_packed_bwd_dq"):
         grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
     elif kind == "mha_packed_bwd_dkdv":
@@ -142,27 +192,19 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
         smem = _static_smem(D, itemsize, heads)
     elif kind == "mha":
         grid = (B * NH, 1, 1)
-    elif kind == "mha_batched_heads":
-        grid = (B, 1, 1)
     elif kind == "mha_qblock":
         rows = qblock_rows(block_q)
         grid = (cdiv(S, rows), B * NH, 1)
-    elif kind == "mha_fused":
-        qblock_rows(block_q)  # validates; the staged tile caps rows at 64
-        grid = (cdiv(S, rows), B, 1)
-        smem = rows * (NH * D + 16 // itemsize) * itemsize
-        if smem + _static_smem(D, itemsize) > MAX_SHARED_BYTES:
-            raise ValueError(
-                f"mha_fused stages a ({rows}, {NH * D}) output tile in "
-                f"shared memory: {smem + _static_smem(D, itemsize)} bytes "
-                f"with the K/V tiles, more than the {MAX_SHARED_BYTES} a "
-                f"block may use")
+    elif kind in _PIPELINED:
+        qblock_rows(block_q)  # validates; mha_fused's rows are 64 for all
+        grid, rows, heads, smem, ctas = _pipelined(kind, B, S, NH, D,
+                                                   itemsize, sms)
     else:
         raise ValueError(f"no attention kernel named {kind!r}")
     if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} needs the "
                          f"grid {grid}, beyond CUDA's limits")
-    return Launch(grid, 2 * rows * heads, rows, smem)
+    return Launch(grid, 2 * rows * heads, rows, smem, ctas)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
@@ -227,14 +269,36 @@ def _run(source: str, fn_name: str, tensors, ints, device) -> None:
 
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            B: int, S: int, NH: int, D: int,
-            block_q: int = 256) -> torch.Tensor:
+            B: int, S: int, NH: int, D: int, block_q: int = 256,
+            sms: int = H100_SMS) -> torch.Tensor:
     _check_kernel(q, k, v, NH)
-    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q)
+    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q, sms)
     out = torch.empty_like(q)
-    _run("attention", f"{kind}_{_suffix(q)}", (q, k, v, out),
-         (S, NH, D, *geo.grid, geo.threads, geo.smem), q.device)
+    source, ints = "attention", (S, NH, D)
+    if kind in _PIPELINED:
+        source, ints = "attention_pipelined", (B, S, NH, D)
+    _run(source, f"{kind}_{_suffix(q)}", (q, k, v, out),
+         (*ints, *geo.grid, geo.threads, geo.smem), q.device)
     return out
+
+
+def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
+    """The CTAs of `kind`'s kernel (`mha_batched_heads` or `mha_fused`, of
+    the dtype of `itemsize` bytes, head width D) that fit on one SM of the
+    current card at `launch_geometry`'s threads and shared memory, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them. Builds the
+    kernels if needed; raises on a CUDA error."""
+    if kind not in _PIPELINED:
+        raise ValueError(f"no pipelined attention kernel named {kind!r}")
+    geo = launch_geometry(kind, 1, _TILE_KEYS, 1, D, itemsize)
+    suffix = "bf16" if itemsize == 2 else "f32"
+    fn = getattr(_cuda.load("attention_pipelined"),
+                 f"{kind}_occupancy_{suffix}")
+    blocks = fn(D, geo.threads, geo.smem)
+    if blocks < 0:
+        raise RuntimeError(f"{kind}_occupancy_{suffix}: cudaError_t "
+                           f"{-blocks}")
+    return blocks
 
 
 def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -559,7 +623,8 @@ def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block_q must be at least 1, got {block_q}")
     if q.device.type == "cpu":
         return reference_mha(q, k, v)
-    out = _launch(kind, q, k, v, *q.shape, block_q)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    out = _launch(kind, q, k, v, *q.shape, block_q, sms)
     entry.launches += 1
     return out
 
@@ -576,9 +641,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def mha_batched_heads(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
-    """Same contract as `mha`, one block per batch element, which walks the
-    NH heads and their query tiles in turn (the TPU kernel's `fori_loop`
-    over heads). Launches count in `mha_batched_heads.launches`."""
+    """Same contract as `mha`. The TPU kernel runs all heads of one batch
+    element per program (a `fori_loop` over heads) to amortise its DMA
+    latency; here a persistent grid of (SMs x 2) CTAs walks the work items
+    (batch element, head, 128-row query block), batch-major, so the CTAs
+    running at one time share a batch element's K/V in L2. Two warpgroups
+    take an item's two 64-row halves on one staged K/V tile
+    (`csrc/attention_pipelined.cu`). Launches count in
+    `mha_batched_heads.launches`."""
     return _attend(mha_batched_heads, q, k, v)
 
 
@@ -597,16 +667,16 @@ def mha_qblock(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               block_q: int = 256) -> torch.Tensor:
-    """Same contract as `mha`, one block per (query block, batch element)
-    covering all NH heads: the block stages its (rows, NH * D) output tile
-    in shared memory and writes whole rows with 16-byte stores, the TPU
-    kernel's single (BQ, NH, D) store.
+    """Same contract as `mha`, one CTA per (64-row query block, batch
+    element) covering all NH heads, as the TPU kernel's program does. Its
+    two warpgroups take heads 2p and 2p + 1 on one staged 64-key x 2D-lane
+    K/V tile and write their rows straight from registers: the TPU kernel's
+    single (BQ, NH, D) store is a Mosaic workaround, and no (rows, NH * D)
+    tile is staged, so every NH * D the JAX function takes runs (an odd NH
+    leaves the last pair one head). f32 walks the heads one at a time.
 
-    Rows are `qblock_rows(block_q)` capped at 64, which every `block_q` >= 1
-    reaches: 64-row blocks and the same output for all. The staged tile
-    must fit the block's shared memory with the K/V tiles: NH * D up to
-    1664 in bf16 and 776 in f32 at D = 64 (the AST's 768 fits both); wider
-    raises. Launches count in `mha_fused.launches`."""
+    Rows are 64 for every `block_q` >= 1, and so is the output. Launches
+    count in `mha_fused.launches`."""
     return _attend(mha_fused, q, k, v, block_q)
 
 
