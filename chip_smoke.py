@@ -12,14 +12,21 @@ fails the run loudly:
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
   2. build: compiles every kernel source with nvcc (one per source, in
      parallel), prints each instance's registers and spills and checks
-     that the bf16 D=64 mha_packed instance keeps to 128 (16 warps per SM);
-     prints the CTAs per SM the card fits of every instance of
-     csrc/attention_pipelined.cu and fails below the number that
-     launch_geometry's grid assumes;
+     that the bf16 D=64 instance serving mha_packed (the warp-specialised
+     walk of csrc/attention_ws.cu) keeps to its launch bounds' registers
+     with its setmaxnreg in force, and mha_batched_heads' to 128; prints the
+     CTAs per SM the card fits of every instance of csrc/attention_ws.cu and
+     csrc/attention_pipelined.cu (mha_packed, mha_packed_lse,
+     mha_batched_heads, mha_fused, each in bf16 and f32) and fails below the
+     number that launch_geometry's grid assumes;
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
-     path's shapes and at head width 32, then times kernel, plain version
-     and PyTorch's scaled_dot_product_attention (the yardstick; the port
-     never calls it) at (128, 1214, 768) bf16;
+     path's shapes and at head width 32, and on the persistent walk's hard
+     cases: B=1 (fewer work items than SMs), B=3, NH 1, 3 and 28, D=32,
+     bf16 and f32 poisoned tails; then times kernel, plain version and
+     PyTorch's scaled_dot_product_attention (the yardstick; the port never
+     calls it) at (128, 1214, 768) bf16, beside mha_batched_heads on the
+     same memory (the pipelined walk that ran bf16 mha_packed before
+     csrc/attention_ws.cu), and both at B=1;
   3b. attention entry points: mha, mha_batched_heads, mha_qblock and
      mha_fused driven at the AST's attention width (128, 1214, 12, 64) and
      (128, 146, 12, 64) bf16 with the launch counters zeroed just before
@@ -41,7 +48,9 @@ fails the run loudly:
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counter zeroed just before and read just after; the window
      probabilities are held against the same engine with
-     attention_impl="torch", and a small f32 model against the CPU;
+     attention_impl="torch", a small f32 model against the CPU, and the
+     front end's rfft branch on the card against its matmul DFT and the
+     CPU;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
      directories;
   6. training: mha_packed_trainable alone at (16, 1214, 768) f32 and bf16:
@@ -98,11 +107,18 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ENGINE_TOL = 2e-2
 # small f32 model, kernel on the card vs plain version on the CPU (logits)
 SMALL_F32_TOL = 1e-4
+# the front end's log-mel frames, rfft branch on the card vs the matmul DFT
+# on the card and the rfft branch on the CPU: f32 sums in other orders,
+# magnified by the log in bins near the floor (tests/test_golden.py's 1e-3)
+FBANK_TOL = 1e-3
 # training at full width, bf16: per-step losses of the "kernel" and "torch"
 # routes (the attention rounding differences above, through 12 layers, the
-# focal loss and up to 5 updates; the losses run from about 1 to 0.03, and
-# the routes read 3.6e-3 apart at most, PERF.md), and the relative norm of
-# the difference of their first-step gradients (read 1.4e-2)
+# focal loss and up to 5 updates; the losses run from about 1 to 0.03), and
+# the relative norm of the difference of their first-step gradients (read
+# 1.3e-2 to 1.4e-2). The loss right after the first update moves most:
+# Adam's first step moves every parameter by about the learning rate in the
+# direction of its gradient's sign, so the gradients that are rounding noise
+# step apart (tools/train_route_noise.py measures it; PERF.md §6).
 TRAIN_LOSS_TOL = 5e-3
 TRAIN_GRAD_REL_TOL = 5e-2
 # the optimizer of the training phase: .bench/train_pallas.py's weight decay
@@ -144,14 +160,21 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
 KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
-# mha_batched_heads and mha_fused: the cp.async ring and wgmma body
-PIPELINED = ("mha_batched_heads", "mha_fused")
+# the kernels of the cp.async ring and wgmma body: the persistent walk of
+# mha_packed, its lse forward and mha_batched_heads, and mha_fused
+PIPELINED = ("mha_packed", "mha_packed_lse", "mha_batched_heads",
+             "mha_fused")
+PIPELINED_ENTRIES = ("mha_batched_heads", "mha_fused")  # of ENTRY_POINTS
 PIPELINED_SOURCE = ("zenker_audio_detection_tpu_torch/csrc/"
                     "attention_pipelined.cu")
-# their own cases against reference_mha, (B, S, NH, D) and dtypes: B=1 has
-# fewer work items than SMs, B=3 a count that is no multiple of the grid,
-# NH=3 leaves mha_fused's last pair one head, NH=28 is past the width at
-# which a staged (64, NH * D) output tile would outgrow shared memory
+# the bf16 mha_packed and mha_packed_lse: the warp-specialised walk (their
+# f32 forms run PIPELINED_SOURCE)
+WS_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_ws.cu"
+# their own cases against reference_mha (mha_packed: packed, num_heads=NH),
+# (B, S, NH, D) and dtypes: B=1 has fewer work items than SMs, B=3 a count
+# that is no multiple of the grid, NH=3 leaves mha_fused's last pair one
+# head, NH=28 is past the width at which a staged (64, NH * D) output tile
+# would outgrow shared memory
 PIPELINED_CASES = (
     [((1, 1214, 12, 64), dt) for dt in ("bfloat16", "float32")]
     + [((3, 1214, 12, 64), "bfloat16")]
@@ -253,6 +276,9 @@ def phase_kernel_vs_plain(A) -> dict:
              (2, 300, 256, 4, torch.bfloat16),
              (2, 300, 128, 4, torch.bfloat16),  # head width 32
              (2, 300, 128, 4, torch.float32)]
+    # the persistent walk's own cases, as phase 3b's for mha_batched_heads
+    cases += [(B, S, NH * D, NH, getattr(torch, dt))
+              for (B, S, NH, D), dt in PIPELINED_CASES]
     for B, S, H, nh, dtype in cases:
         q, k, v = qkv(B, S, H, dtype)
         out = A.mha_packed(q, k, v, num_heads=nh)
@@ -261,6 +287,19 @@ def phase_kernel_vs_plain(A) -> dict:
         torch.cuda.synchronize()
         require_close(f"mha_packed {(B, S, H)} nh={nh} {dtype}", out, ref,
                       dtype)
+    # the poisoned tail: keys and values past S hold 1e4; a kernel that
+    # reads or fails to mask them moves every softmax row
+    for H, nh, dtype in ((128, 2, torch.bfloat16), (128, 4, torch.bfloat16),
+                         (128, 2, torch.float32), (192, 3, torch.float32)):
+        bufs = qkv(1, 128, H, dtype)
+        for b in bufs:
+            b[:, 65:] = 1e4
+        views = [b[:, :65] for b in bufs]  # contiguous at B = 1
+        ref = A.mha_packed_reference(*(x.clone() for x in views), nh)
+        out = A.mha_packed(*views, num_heads=nh)
+        torch.cuda.synchronize()
+        require_close(f"mha_packed poisoned tail (1, 65, {H}) nh={nh} "
+                      f"{dtype}", out, ref, dtype)
 
     B, S, H, nh = MAIN_SHAPE
     D = H // nh
@@ -278,8 +317,12 @@ def phase_kernel_vs_plain(A) -> dict:
     heads = [x.view(B, S, nh, D).transpose(1, 2) for x in (q, k, v)]
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
+    # mha_batched_heads on the same memory, (B, S, NH, D): the same kernel
+    split = [x.view(B, S, nh, D) for x in (q, k, v)]
+    batched_ms = median_ms(lambda: A.mha_batched_heads(*split))
     b = bound(B, S, nh, D, q.element_size())
-    log(f"[kernel] timing at {(B, S, H)} bf16: kernel {ms:.4f} ms, plain "
+    log(f"[kernel] timing at {(B, S, H)} bf16: kernel {ms:.4f} ms "
+        f"(mha_batched_heads on the same memory {batched_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
         f"ms; bound {b['bound_ms']:.4f} ms ({b['text']})")
     # the same H cut into 24 heads of 32: the head width of the JAX tests
@@ -287,17 +330,28 @@ def phase_kernel_vs_plain(A) -> dict:
     b32 = bound(B, S, 2 * nh, D // 2, q.element_size())
     log(f"[kernel] timing at {(B, S, H)} bf16 with {2 * nh} heads of "
         f"{D // 2}: kernel {ms32:.4f} ms; bound {b32['bound_ms']:.4f} ms")
+    del split, heads
     x32 = qkv(B, S, H, torch.float32)
     ms_f32 = median_ms(lambda: A.mha_packed(*x32, num_heads=nh))
     b_f32 = bound(B, S, nh, D, 4)
     log(f"[kernel] timing at {(B, S, H)} f32: kernel {ms_f32:.4f} ms; bound "
         f"{b_f32['bound_ms']:.4f} ms ({b_f32['text']})")
     del x32
-    return {"name": "mha_packed", "route": "cuda", "source": KERNEL_SOURCE,
+    # one batch element: 120 work items on the card's SMs
+    x1 = qkv(1, S, H, torch.bfloat16)
+    b1_ms = median_ms(lambda: A.mha_packed(*x1, num_heads=nh))
+    b1_batched_ms = median_ms(lambda: A.mha_batched_heads(
+        *(x.view(1, S, nh, D) for x in x1)))
+    log(f"[kernel] timing at {(1, S, H)} bf16: kernel {b1_ms:.4f} ms "
+        f"(mha_batched_heads {b1_batched_ms:.4f} ms); bound "
+        f"{bound(1, S, nh, D, 2)['bound_ms']:.4f} ms")
+    return {"name": "mha_packed", "route": "cuda", "source": WS_SOURCE,
             "replaces": "zenker_audio_detection_tpu/ops/attention.py:320",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "library_ms": library_ms}
+            "library_ms": library_ms, "batched_heads_ms": batched_ms,
+            "f32_ms": ms_f32, "f32_bound_ms": b_f32["bound_ms"],
+            "b1_ms": b1_ms, "b1_batched_heads_ms": b1_batched_ms}
 
 
 def phase_entry_points(A, torch) -> list:
@@ -359,7 +413,7 @@ def phase_entry_points(A, torch) -> list:
         dtype = getattr(torch, dt)
         x = qkv(shape, dtype)
         ref = A.reference_mha(*x)
-        for name in PIPELINED:
+        for name in PIPELINED_ENTRIES:
             out = fns[name](*x)
             torch.cuda.synchronize()
             err = require_close(f"{name} {shape} {dtype}", out, ref, dtype)
@@ -411,7 +465,7 @@ def phase_entry_points(A, torch) -> list:
     x32 = qkv(ENTRY_SHAPES[0], torch.float32)
     b32 = bound(B, S, NH, D, 4)
     for r in records:
-        if r["name"] in PIPELINED:
+        if r["name"] in PIPELINED_ENTRIES:
             r["f32_ms"] = median_ms(lambda: fns[r["name"]](*x32))
             r["f32_bound_ms"] = b32["bound_ms"]
             log(f"[entry] timing {r['name']} at {(B, S, NH, D)} f32: kernel "
@@ -423,7 +477,7 @@ def phase_entry_points(A, torch) -> list:
     x1 = qkv((1, S, NH, D), torch.bfloat16)
     b1 = bound(1, S, NH, D, 2)
     for r in records:
-        if r["name"] in PIPELINED:
+        if r["name"] in PIPELINED_ENTRIES:
             r["b1_ms"] = median_ms(lambda: fns[r["name"]](*x1))
             log(f"[entry] timing {r['name']} at {(1, S, NH, D)} bf16: kernel "
                 f"{r['b1_ms']:.4f} ms; bound {b1['bound_ms']:.4f} ms")
@@ -649,6 +703,25 @@ def phase_small_f32(A, ast_mod, torch) -> None:
         f"{err:.3g} (tolerance {SMALL_F32_TOL})")
     if not err <= SMALL_F32_TOL:
         raise AssertionError(f"f32 forward on the card disagrees: {err}")
+
+
+def phase_fbank(torch) -> None:
+    """The front end's rfft branch (use_matmul_dft=False) runs on the
+    waveform's device and agrees with the matmul DFT there and with itself
+    on the CPU."""
+    from zenker_audio_detection_tpu_torch.ops import fbank as F
+
+    audio = torch.from_numpy(seeded_audio(3.0, seed=12))
+    n = F.num_frames(audio.numel())
+    got = F.logmel_frames(audio.cuda(), n, use_matmul_dft=False)
+    errs = [(got.cpu() - want.cpu()).abs().max().item() for want in (
+        F.logmel_frames(audio.cuda(), n),
+        F.logmel_frames(audio, n, use_matmul_dft=False))]
+    log(f"[engine] log-mel frames, rfft branch on the card ({got.device}): "
+        f"max abs err {errs[0]:.3g} vs the matmul DFT on the card, "
+        f"{errs[1]:.3g} vs the CPU (tolerance {FBANK_TOL})")
+    if got.device.type != "cuda" or not max(errs) <= FBANK_TOL:
+        raise AssertionError("the rfft front end disagrees on the card")
 
 
 def phase_cli(A, C, ast_mod, torch) -> None:
@@ -977,7 +1050,7 @@ def phase_train_alone(A, torch) -> list:
                 "bound_by": b["bound_by"], "library_ms": library}
 
     trainable_rec = record(
-        "mha_packed_trainable", f"{KERNEL_SOURCE} + {BWD_SOURCE}",
+        "mha_packed_trainable", f"{WS_SOURCE} + {BWD_SOURCE}",
         TRAINABLE_REPLACES, errs["trainable"], ms, plain_ms, b_all,
         library_ms)
     trainable_rec.update(bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
@@ -985,7 +1058,7 @@ def phase_train_alone(A, torch) -> list:
                          bwd_library_ms=bwd_library_ms,
                          bwd_peak_gb=bwd_peak_gb)
     return [
-        record("mha_packed_lse", KERNEL_SOURCE,
+        record("mha_packed_lse", WS_SOURCE,
                "zenker_audio_detection_tpu/ops/attention.py:437",
                errs["lse"], lse_ms, lse_plain_ms, b_lse, fwd_library_ms),
         record("mha_packed_bwd_dq", BWD_SOURCE, BWD_REPLACES, errs["dq"],
@@ -1031,7 +1104,7 @@ def phase_train(A, ast_mod, torch) -> dict:
 
     def run(route):
         """TRAIN_STEPS steps: the loss before each update, then the loss
-        after the last, median ms per step and the first step's
+        after the last, the ms of each step and the first step's
         gradients."""
         p, o = params0, tx.init(params0)
         losses_, times, grads = [], [], None
@@ -1051,7 +1124,7 @@ def phase_train(A, ast_mod, torch) -> dict:
             losses_.append(float(kernel_loss(p, feats, labels)[0]
                                  if route == "kernel"
                                  else torch_loss(p, feats, labels)[0]))
-        return losses_, float(np.median(times[1:])), grads
+        return losses_, times, grads
 
     torch.cuda.reset_peak_memory_stats()
     # ---- the training path: counts zeroed just before, read just after ----
@@ -1086,12 +1159,14 @@ def phase_train(A, ast_mod, torch) -> dict:
     log(f"[train] loss before each step and after the last, kernel route: "
         f"{[round(x, 6) for x in k_losses]}; torch route: "
         f"{[round(x, 6) for x in t_losses]}; max difference {loss_err:.3g} "
-        f"(tolerance {TRAIN_LOSS_TOL}); first-step gradients, relative "
-        f"norm of the difference {grad_rel:.3g} (tolerance "
-        f"{TRAIN_GRAD_REL_TOL})")
+        f"(tolerance {TRAIN_LOSS_TOL}); first-step gradients, relative norm "
+        f"of the difference {grad_rel:.3g} (tolerance {TRAIN_GRAD_REL_TOL})")
     log(f"[train] full width, batch {B}, bf16, remat: kernel route "
-        f"{k_ms:.2f} ms/step, torch route {t_ms:.2f} ms/step (median of "
-        f"steps 2-{TRAIN_STEPS}); peak memory of the kernel route "
+        f"{np.median(k_ms[1:]):.2f} ms/step, torch route "
+        f"{np.median(t_ms[1:]):.2f} ms/step (median of steps "
+        f"2-{TRAIN_STEPS}; each step: kernel "
+        f"{[round(x, 2) for x in k_ms]}, torch "
+        f"{[round(x, 2) for x in t_ms]}); peak memory of the kernel route "
         f"{k_peak:.2f} GB")
     for name, ls in (("kernel", k_losses), ("torch", t_losses)):
         # ls[0] is the loss before the first step, ls[1] after it, ls[-1]
@@ -1155,24 +1230,47 @@ def phase_train_small_f32(ast_mod, torch) -> None:
                              "with the CPU")
 
 
-def check_registers(report: str) -> None:
-    """The bf16 D=64 mha_packed instance must keep to 128 registers, so
-    that four 4-warp blocks fit on an SM."""
+# the bf16 D=64 instances of the main path and of the pipelined walk:
+# csrc/attention_ws.cu's ws_kernel<64, false> (mha_packed; one CTA per SM,
+# whose setmaxnreg then moves registers to the consumers) and
+# csrc/attention_pipelined.cu's batched_kernel<64> (mha_batched_heads; two
+# 8-warp CTAs per SM)
+REGISTER_CAPS = {"attention_ws": ("mha_packed", "9ws_kernelILi64ELb0EE"),
+                 "attention_pipelined": ("mha_batched_heads",
+                                         "14batched_kernelILi64EE")}
+
+
+def register_cap(A, name: str) -> int:
+    """The registers a thread of `name`'s bf16 D=64 kernel may hold: the
+    SM's 65536 shared by the CTAs launch_geometry fits on it, in ptxas's
+    multiples of 8 (the kernels' launch bounds)."""
+    geo = A.launch_geometry(name, 1, 64, 1, 64, 2)
+    return 65536 // (geo.threads * geo.ctas_per_sm) // 8 * 8
+
+
+def check_registers(source: str, report: str, cap: int) -> None:
+    """The bf16 D=64 instance of `source` named in REGISTER_CAPS must keep
+    to `cap` registers; no setmaxnreg of the source may have been
+    ignored."""
+    if "setmaxnreg ignored" in report:
+        raise AssertionError(f"{source}: ptxas ignored a setmaxnreg")
+    name, mangled = REGISTER_CAPS[source]
     lines = report.splitlines()
     for i, line in enumerate(lines):
-        if "attn_kernelI13__nv_bfloat16Li64ELi4ELi0E" in line:
+        if "Compiling entry function" in line and mangled in line:
             used = next(l for l in lines[i + 1:] if "Used" in l)
             regs = int(used.split("Used")[1].split("registers")[0])
-            log(f"[build] mha_packed bf16 D=64: {regs} registers")
-            if regs > 128:
-                raise AssertionError(f"mha_packed bf16 D=64 uses {regs} "
-                                     f"registers, more than 128")
+            log(f"[build] {name} bf16 D=64: {regs} registers (at most {cap})")
+            if regs > cap:
+                raise AssertionError(f"{name} bf16 D=64 uses {regs} "
+                                     f"registers, more than {cap}")
             return
-    raise AssertionError("no mha_packed bf16 D=64 instance in the report")
+    raise AssertionError(f"no {name} bf16 D=64 instance in the report")
 
 
 def check_occupancy(A) -> dict:
-    """Every instance of csrc/attention_pipelined.cu must fit on an SM as
+    """Every instance of csrc/attention_pipelined.cu and
+    csrc/attention_ws.cu must fit on an SM as
     many times as launch_geometry's grid assumes (a register creep past the
     launch bounds or more shared memory would lower it); returns
     {name: {dtype: {D: CTAs per SM}}}."""
@@ -1222,18 +1320,16 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry function", "Used",
                                        "spill")):
                 log(f"[build] {source}: {line.strip()}")
-        if source == "attention":
-            check_registers(report)
+        if source in REGISTER_CAPS:
+            check_registers(source, report,
+                            register_cap(A, REGISTER_CAPS[source][0]))
     occupancy = check_occupancy(A)
 
     record = phase_kernel_vs_plain(A)
-    entry_records = phase_entry_points(A, torch)
-    for r in entry_records:
-        if r["name"] in PIPELINED:
-            r["ctas_per_sm"] = occupancy[r["name"]]
-    records = [record, *entry_records, phase_pairs(A, torch)]
+    records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch)]
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
     phase_small_f32(A, ast_mod, torch)
+    phase_fbank(torch)
     phase_cli(A, C, ast_mod, torch)
     train_records = phase_train_alone(A, torch)
     launches = phase_train(A, ast_mod, torch)
@@ -1241,6 +1337,9 @@ def main() -> int:
         r["launches"] = launches[{"mha_packed_trainable": "mha_packed_lse"}
                                  .get(r["name"], r["name"])]
     records += train_records
+    for r in records:
+        if r["name"] in PIPELINED:
+            r["ctas_per_sm"] = occupancy[r["name"]]
     phase_train_small_f32(ast_mod, torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -34,9 +34,21 @@ def test_mha_packed_matches_jax(dtype, B, S, NH, D, bq):
         interpret=True)).astype(np.float32)
     tdtype = getattr(torch, dtype)
     got = A.mha_packed(*(torch.from_numpy(x).to(tdtype) for x in qkv),
-                       num_heads=NH)
+                       num_heads=NH, block_q=bq)
     assert got.dtype == tdtype and got.shape == (B, S, NH * D)
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("bq", [1, 64, 96, 10**6])
+def test_mha_packed_block_q_does_not_change_the_output(bq):
+    """Any block_q >= 1 gives the output of the default 256, bit for bit,
+    as every row's result is independent of how rows are blocked."""
+    rng = np.random.default_rng(13)
+    qkv = [torch.from_numpy(rng.standard_normal((2, 130, 128))
+                            .astype(np.float32)) for _ in range(3)]
+    torch.testing.assert_close(A.mha_packed(*qkv, num_heads=4, block_q=bq),
+                               A.mha_packed(*qkv, num_heads=4),
+                               atol=0, rtol=0)
 
 
 def _t(*shape, dtype=torch.float32):
@@ -53,6 +65,8 @@ def _t(*shape, dtype=torch.float32):
     ((_t(1, 8, 64), _t(1, 8, 64, dtype=torch.bfloat16), _t(1, 8, 64)),
      {"num_heads": 1}, TypeError),
     ((_t(1, 8, 64, dtype=torch.int32),) * 3, {"num_heads": 1}, TypeError),
+    ((_t(1, 8, 64),) * 3, {"num_heads": 1, "block_q": 0}, ValueError),
+    ((_t(1, 8, 64),) * 3, {"num_heads": 1, "block_q": -64}, ValueError),
 ])
 def test_mha_packed_rejects_bad_inputs(args, kw, err):
     with pytest.raises(err):
@@ -82,7 +96,9 @@ def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
     # rebuilds every source that includes it, and an edited source only
     # itself
     assert [p.name for p in _cuda._sources("attention_pipelined")] == [
-        "attention_pipelined.cu", "flash_common.cuh"]
+        "attention_pipelined.cu", "flash_common.cuh", "hopper.cuh"]
+    assert [p.name for p in _cuda._sources("attention_ws")] == [
+        "attention_ws.cu", "flash_common.cuh", "hopper.cuh"]
     for path in _cuda.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
@@ -111,3 +127,40 @@ def test_mha_packed_refuses_other_devices():
     q = torch.zeros(1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         A.mha_packed(q, q, q, num_heads=1)
+
+
+@pytest.mark.parametrize("kind", ["mha_packed", "mha_packed_lse",
+                                  "mha_batched_heads"])
+def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
+    """The persistent grid is sized by the card's SM count, read from the
+    device properties once per device and not on every call (checked with
+    the properties and the C call stood in for)."""
+    reads, calls = [], []
+
+    class Props:
+        multi_processor_count = 7
+
+    def props(device):
+        reads.append(device)
+        return Props()
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(A, "_run", lambda source, fn, tensors, ints, device:
+                        calls.append((source, fn, len(tensors), ints)))
+    A.sm_count.cache_clear()
+    try:
+        B, S, NH, D = 3, 300, 4, 32
+        q = torch.zeros(B, S, NH * D, dtype=torch.bfloat16)
+        lse = torch.zeros(B, NH, S) if kind == "mha_packed_lse" else None
+        for _ in range(3):
+            A._launch(kind, q, q, q, B, S, NH, D, lse=lse)
+    finally:
+        A.sm_count.cache_clear()
+    assert reads == [q.device]
+    geo = A.launch_geometry(kind, B, S, NH, D, 2, sms=7)
+    # 7 SMs x ctas_per_sm CTAs, fewer than the 36 items
+    assert geo.grid == (7 * geo.ctas_per_sm, 1, 1)
+    source = "attention_pipelined" if kind == "mha_batched_heads" else \
+        "attention_ws"
+    assert calls == [(source, f"{kind}_bf16", 4 if lse is None else 5,
+                      (B, S, NH, D, *geo.grid, geo.threads, geo.smem))] * 3

@@ -23,6 +23,7 @@ from zenker_audio_detection_tpu.ops import attention as JA
 from zenker_audio_detection_tpu_torch.ops import attention as A
 
 from test_torch_attention_pairs import _inputs, pallas_interpret  # noqa: F401
+from test_torch_attention_variants import _walk
 
 GRAD_TOL = {"float32": (2e-4, 1e-3), "bfloat16": (2e-2, 0.0)}
 SHAPES = [(2, 70, 4, 16), (2, 300, 4, 32), (1, 146, 12, 64)]
@@ -118,12 +119,29 @@ def test_cpu_wrappers_take_the_plain_versions():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 146, 1214])
+def test_lse_forward_walks_every_row_once(S):
+    """The lse forward runs mha_packed's persistent walk: every (batch
+    element, head, row block) item once, so each (batch, head, row) lse
+    entry is written by exactly one warpgroup row."""
+    B, NH, D = 3, 12, 64
+    geo = A.launch_geometry("mha_packed_lse", B, S, NH, D, 2)
+    consumers = A.ws_tile()[1]
+    assert geo.rows == 64 * consumers and geo.ctas_per_sm == 1
+    assert geo.threads == 128 * (consumers + 1)
+    items = [it for cta in _walk(geo, B, S, NH) for it in cta]
+    rows = [(b, h, r) for b, h, q0 in items
+            for r in range(q0, min(q0 + geo.rows, S))]
+    assert sorted(rows) == [(b, h, r) for b in range(B) for h in range(NH)
+                            for r in range(S)]
+
+
+@pytest.mark.parametrize("kind", ["mha_packed_bwd_dq", "mha_packed_bwd_dkdv"])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 146, 1214])
 def test_bwd_geometry_covers_every_row(kind, S):
-    """Query tiles (lse forward, bwd_dq) or key tiles (bwd_dkdv) of 64 rows
-    cover every row once; one block per (tile, head, batch element), 4
-    warps, static shared memory only."""
+    """Query tiles (bwd_dq) or key tiles (bwd_dkdv) of 64 rows cover every
+    row once; one block per (tile, head, batch element), 4 warps, static
+    shared memory only."""
     B, NH, D = 3, 12, 64
     geo = A.launch_geometry(kind, B, S, NH, D, 2)
     assert geo.grid[1:] == (NH, B)

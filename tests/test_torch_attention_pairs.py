@@ -69,19 +69,19 @@ def test_mha_pairs_block_q_does_not_change_the_output(bq):
 
 @pytest.mark.parametrize("NH,calls", [(3, 1), (1, 1), (4, 0), (12, 0)])
 def test_mha_pairs_odd_heads_call_mha_packed(monkeypatch, NH, calls):
-    """An odd head count is `mha_packed`, as the JAX function is; an even
-    one never reaches it."""
+    """An odd head count is `mha_packed` with the same block_q, as the JAX
+    function is; an even one never reaches it."""
     seen = []
     orig = A.mha_packed
 
-    def spy(q, k, v, *, num_heads):
-        seen.append(num_heads)
-        return orig(q, k, v, num_heads=num_heads)
+    def spy(q, k, v, *, num_heads, block_q=256):
+        seen.append((num_heads, block_q))
+        return orig(q, k, v, num_heads=num_heads, block_q=block_q)
 
     monkeypatch.setattr(A, "mha_packed", spy)
     qkv = [torch.from_numpy(x) for x in _inputs(NH, (1, 40, NH * 32))]
-    got = A.mha_pairs(*qkv, num_heads=NH)
-    assert seen == [NH] * calls
+    got = A.mha_pairs(*qkv, num_heads=NH, block_q=96)
+    assert seen == [(NH, 96)] * calls
     torch.testing.assert_close(got, A.mha_packed_reference(*qkv, NH),
                                atol=0, rtol=0)
 

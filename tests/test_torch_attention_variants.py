@@ -21,6 +21,12 @@ from zenker_audio_detection_tpu_torch.ops import attention as A
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ENTRIES = ("mha", "mha_batched_heads", "mha_qblock", "mha_fused")
 BLOCKED = ("mha_qblock", "mha_fused")
+# the kernels of the persistent walk (csrc/attention_pipelined.cu, and for
+# the bf16 packed kinds csrc/attention_ws.cu), and with mha_fused every
+# kernel of those sources
+PERSISTENT = ("mha_batched_heads", "mha_packed", "mha_packed_lse")
+PIPELINED = (*PERSISTENT, "mha_fused")
+WS = ("mha_packed", "mha_packed_lse")  # bf16: csrc/attention_ws.cu
 # (S, block_q) of tests/test_pallas_attention.py:74-80; (1280, 96) and
 # (200, 96) are where a floor-divided grid once skipped the last rows
 QBLOCK_CASES = [(64, 64), (300, 128), (100, 256), (1280, 96), (200, 96)]
@@ -73,10 +79,11 @@ def test_reference_mha_matches_jax(dtype, B, S, NH, D):
 
 
 def _walk(geo, B, S, NH):
-    """(b, h, first query row) of every work item of the persistent
-    `mha_batched_heads`, CTA by CTA, as csrc/attention_pipelined.cu:
-    batched_kernel walks them: CTA x takes items i = x + j * gridDim.x,
-    numbered batch-major, then head, then query block."""
+    """(b, h, first query row) of every work item of the persistent walk
+    (`mha_batched_heads`, `mha_packed`, `mha_packed_lse`), CTA by CTA, as
+    the kernels of csrc/attention_pipelined.cu and csrc/attention_ws.cu walk
+    them: CTA x takes items i = x + j * gridDim.x, numbered batch-major,
+    then head, then query block."""
     nqb = A.cdiv(S, geo.rows)
     items = B * NH * nqb
     return [[(i // (NH * nqb), i // nqb % NH, i % nqb * geo.rows)
@@ -90,7 +97,7 @@ def _tile_starts(kind, geo, B, S, NH):
     them."""
     if kind == "mha":
         return range(0, S, geo.rows)  # each block loops over its tiles
-    if kind == "mha_batched_heads":
+    if kind in PERSISTENT:
         return sorted({s0 for cta in _walk(geo, B, S, NH)
                        for _, _, s0 in cta})
     return [x * geo.rows for x in range(geo.grid[0])]
@@ -98,13 +105,16 @@ def _tile_starts(kind, geo, B, S, NH):
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("S,bq", QBLOCK_CASES)
-@pytest.mark.parametrize("kind", ("mha_packed",) + ENTRIES)
+@pytest.mark.parametrize("kind", ("mha_packed", "mha_packed_lse") + ENTRIES)
 def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
     B, NH, D = 2, 4, 32
     geo = A.launch_geometry(kind, B, S, NH, D, itemsize, block_q=bq)
-    # two threads per query row and head; bf16 mha_fused takes a head pair
+    # two threads per query row and head; bf16 mha_fused takes a head pair;
+    # the bf16 packed kinds add a producer warpgroup to their consumers
     pair = 2 if (kind, itemsize) == ("mha_fused", 2) else 1
-    assert geo.rows % 16 == 0 and geo.threads == 2 * geo.rows * pair
+    producer = 128 if (kind in WS and itemsize == 2) else 0
+    assert geo.rows % 16 == 0
+    assert geo.threads == 2 * geo.rows * pair + producer
     starts = list(_tile_starts(kind, geo, B, S, NH))
     covered = set()
     for s0 in starts:
@@ -112,12 +122,11 @@ def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
     assert covered == set(range(S))
     assert max(starts) < S  # no block is launched past the last row
     # the other grid axes: one block per (batch, head) or per batch element;
-    # mha_batched_heads' persistent grid is capped at sms x ctas_per_sm
-    heads = {"mha_packed": B * NH, "mha": B * NH, "mha_batched_heads": B * NH,
-             "mha_qblock": B * NH, "mha_fused": B}[kind]
+    # the persistent grid is capped at sms x ctas_per_sm
+    heads = B if kind == "mha_fused" else B * NH
     q_blocks = 1 if kind == "mha" else len(starts)
     blocks = q_blocks * heads
-    if kind == "mha_batched_heads":
+    if kind in PERSISTENT:
         blocks = min(blocks, A.H100_SMS * geo.ctas_per_sm)
     assert np.prod(geo.grid) == blocks
 
@@ -125,37 +134,81 @@ def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
 @pytest.mark.parametrize("S", [1, 64, 146, 1214])
 @pytest.mark.parametrize("sms", [1, 132])
 @pytest.mark.parametrize("B", [1, 3, 128])
-def test_persistent_walk_covers_every_item_once(B, sms, S):
+@pytest.mark.parametrize("kind", PERSISTENT)
+def test_persistent_walk_covers_every_item_once(kind, B, sms, S):
     NH = 12
-    geo = A.launch_geometry("mha_batched_heads", B, S, NH, 64, 2, sms=sms)
+    geo = A.launch_geometry(kind, B, S, NH, 64, 2, sms=sms)
     walk = _walk(geo, B, S, NH)
     seen = [it for cta in walk for it in cta]
+    # 128-row items, or 64 rows per consumer warpgroup of the
+    # warp-specialised bf16 packed kinds
+    rows = 64 * A.ws_tile()[1] if kind in WS else 128
+    assert geo.rows == rows
     want = {(b, h, q0) for b in range(B) for h in range(NH)
-            for q0 in range(0, S, 128)}
+            for q0 in range(0, S, rows)}
     assert len(seen) == len(set(seen)) and set(seen) == want
-    # every CTA has work, and as many run as fit: sms x 2, or one per item
-    assert all(walk) and geo.grid[0] == min(len(want), 2 * sms)
+    # every CTA has work, and as many run as fit: sms x ctas_per_sm (2, or 1
+    # for the warp-specialised bf16 packed kinds), or one per item
+    ctas = 1 if kind in WS else 2
+    assert geo.ctas_per_sm == ctas
+    assert all(walk) and geo.grid[0] == min(len(want), ctas * sms)
     # the CTAs that run at one time work on neighbouring batch elements
     first_wave = [cta[0][0] for cta in walk]
-    assert max(first_wave) - min(first_wave) <= -(-2 * sms // (NH * A.cdiv(S, 128)))
+    assert max(first_wave) - min(first_wave) <= -(-ctas * sms
+                                                   // (NH * A.cdiv(S, rows)))
 
 
 @pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("kind", ["mha_batched_heads", "mha_fused"])
+@pytest.mark.parametrize("kind", PIPELINED)
 def test_pipelined_shared_memory_fits_its_ctas_per_sm(kind, itemsize, D):
     """An SM has 228 KB of shared memory, of which each CTA also takes 1 KB
     the system reserves, 65536 registers and 2048 threads: ctas_per_sm CTAs
     fit with 128 registers a thread (the kernels' launch bounds) and at most
-    113 KB of shared memory each."""
+    113 KB of shared memory each; the bf16 packed kinds' one CTA of a
+    producer and the consumer warpgroups with all 65536 (setmaxnreg then
+    moves them to the consumers) and up to 227 KB."""
     geo = A.launch_geometry(kind, 128, 1214, 12, D, itemsize)
     assert geo.ctas_per_sm * (geo.smem + 1024) <= 228 * 1024
+    assert geo.threads * geo.ctas_per_sm <= 2048
+    if kind in WS and itemsize == 2:
+        # a ring of `stages` stages of K and V tiles, then 2 mbarriers a stage
+        keys, consumers, stages = A.ws_tile()
+        assert geo.ctas_per_sm == 1 and geo.threads == 128 * (consumers + 1)
+        assert geo.smem == 1024 + stages * 2 * keys * D * 2 + 2 * stages * 8
+        assert geo.smem <= A.MAX_SHARED_BYTES
+        # the launch bounds' registers, a multiple of 8 (setmaxnreg's unit)
+        assert 65536 // geo.threads % 8 == 0
+        return
     assert geo.smem <= 113 * 1024
     assert 65536 // (geo.threads * geo.ctas_per_sm) == 128
-    assert geo.ctas_per_sm >= 2 and geo.threads * geo.ctas_per_sm <= 2048
+    assert geo.ctas_per_sm >= 2
     if itemsize == 2:  # the ring: 3 stages of K and V, one head or a pair
         heads = 2 if kind == "mha_fused" else 1
         assert geo.smem == 3 * 2 * heads * 64 * D * 2 + 1024
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("kind", ["mha_packed", "mha_packed_lse"])
+def test_packed_kinds_take_the_persistent_walk(kind, itemsize, D, sms):
+    """mha_packed and its lse forward walk mha_batched_heads' items: in f32
+    with its geometry (grid, threads, rows, tiles, CTAs per SM), in bf16
+    with one CTA of a producer and the consumer warpgroups per SM
+    (csrc/attention_ws.cu); the same for every block_q."""
+    walk = A.launch_geometry("mha_batched_heads", 128, 1214, 12, D,
+                             itemsize, sms=sms)
+    for bq in (1, 256):
+        geo = A.launch_geometry(kind, 128, 1214, 12, D, itemsize,
+                                block_q=bq, sms=sms)
+        if itemsize == 4:
+            assert geo == walk
+        else:
+            consumers = A.ws_tile()[1]
+            assert geo.rows == 64 * consumers
+            assert geo.grid == (sms, 1, 1) and geo.ctas_per_sm == 1
+            assert geo.threads == 128 * (consumers + 1)
 
 
 @pytest.mark.parametrize("bq,rows", [(1, 64), (64, 64), (65, 128), (96, 128),
@@ -164,6 +217,44 @@ def test_qblock_rows(bq, rows):
     assert A.qblock_rows(bq) == rows
     fused = A.launch_geometry("mha_fused", 1, 1214, 12, 64, 2, block_q=bq)
     assert fused.rows == 64
+
+
+def test_ws_tile_is_read_from_the_source():
+    """The warp-specialised walk's tile shape is written once, in
+    csrc/attention_ws.cu; launch_geometry reads it from there."""
+    from zenker_audio_detection_tpu_torch.ops import _cuda
+
+    text = (_cuda.CSRC / "attention_ws.cu").read_text()
+    keys, consumers, stages = A.ws_tile()
+    assert (keys, consumers, stages) == A.parse_ws_tile(text)
+    assert keys in (64, 128) and consumers >= 1 and stages >= 2
+    geo = A.launch_geometry("mha_packed", 16, 1214, 12, 64, 2)
+    assert (geo.rows, geo.threads) == (64 * consumers, 128 * (consumers + 1))
+
+
+@pytest.mark.parametrize("tile", [(128, 2, 2), (64, 3, 4), (64, 2, 3)])
+def test_launch_geometry_takes_a_variant_tile(tile):
+    """A variant of csrc/attention_ws.cu (tools/packed_ws.py) gets its own
+    geometry: rows, threads, the ring and its mbarriers."""
+    keys, consumers, stages = tile
+    geo = A.launch_geometry("mha_packed_lse", 3, 300, 12, 32, 2, sms=7,
+                            tile=tile)
+    assert geo.rows == 64 * consumers
+    assert geo.threads == 128 * (consumers + 1) and geo.ctas_per_sm == 1
+    assert geo.smem == 1024 + stages * 2 * keys * 32 * 2 + 2 * stages * 8
+    assert geo.grid == (7, 1, 1)
+    # the f32 walk does not depend on it
+    assert (A.launch_geometry("mha_packed", 3, 300, 12, 32, 4, tile=tile)
+            == A.launch_geometry("mha_packed", 3, 300, 12, 32, 4))
+
+
+@pytest.mark.parametrize("text", ["", "constexpr int kKeys = 64;\n",
+                                  "constexpr int kKeys = 64;\n"
+                                  "constexpr int kConsumers = 2;\n"
+                                  "// constexpr int kStages = 2;\n"])
+def test_parse_ws_tile_needs_all_three_constexprs(text):
+    with pytest.raises(ValueError, match="constexprs"):
+        A.parse_ws_tile(text)
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -200,7 +291,11 @@ def test_mha_fused_matches_jax_at_1792_lanes(dtype):
     ("mha_batched_heads", (1, 64, 2, 32, 2, 256, 0), "sms"),
     ("mha_batched_heads", (1, 64, 2, 128, 2), "head width"),
     ("mha_qblock", (1, 64, 70000, 32, 2), "grid"),        # B * NH > 65535
-    ("mha_packed", (70000, 64, 1, 32, 2), "grid"),        # B > 65535
+    ("mha_packed_bwd_dq", (70000, 64, 1, 32, 2), "grid"), # B > 65535
+    # 2^25 x 16 heads x at least 7 row blocks (of 192 rows or fewer): past
+    # a 32-bit item count
+    ("mha_packed", (2**25, 1214, 16, 32, 2), "32-bit"),
+    ("mha_packed_lse", (2**25, 1214, 16, 32, 2), "32-bit"),
     ("mha_triples", (1, 64, 3, 32, 2), "no attention kernel"),
 ])
 def test_launch_geometry_refuses(kind, args, match):

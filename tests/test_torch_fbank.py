@@ -47,6 +47,63 @@ def test_logmel_frames_matches_golden(fbank_golden, clip):
     np.testing.assert_allclose(got, want, atol=1e-3 if clip == "tone" else 5e-4)
 
 
+@pytest.mark.parametrize("clip", ["one_sec", "half_sec", "tone"])
+def test_logmel_frames_rfft_matches_golden(fbank_golden, clip):
+    """The `torch.fft.rfft` branch (use_matmul_dft=False) at the golden
+    tolerances of tests/test_golden.py:53-64."""
+    x = fbank_golden[f"{clip}_in"]
+    want = fbank_golden[f"{clip}_raw"]
+    got = F.logmel_frames(torch.from_numpy(x), F.num_frames(len(x)),
+                          use_matmul_dft=False).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-3 if clip == "tone" else 5e-4)
+
+
+@pytest.mark.parametrize("kind", ["float32", "int16"])
+def test_logmel_frames_rfft_matches_jax(kind):
+    """Both packages' rfft branch on the same seeded waveform, at the bound
+    of test_logmel_frames_matches_jax (f32 sums in other orders, magnified
+    by the log in low-power bins)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(16000 + 321).astype(np.float32) * 0.1
+    if kind == "int16":
+        x = (x * 32768).clip(-32768, 32767).astype(np.int16)
+    n = F.num_frames(len(x))
+    want = np.asarray(JF.logmel_frames(jnp.asarray(x), n,
+                                       use_matmul_dft=False))
+    got = F.logmel_frames(torch.from_numpy(x), n, use_matmul_dft=False)
+    assert got.shape == want.shape == (n, F.NUM_MEL_BINS)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [1, 2, 98, 301])
+def test_frame_indices_match_jax_and_the_hop_slices(n):
+    """`frame_indices` is the JAX package's exactly, and gathering with it
+    gives the frames of the hop-slice framing bit for bit."""
+    got = F.frame_indices(n)
+    want = JF.frame_indices(n)
+    assert got.dtype == np.int32 and got.shape == (n, F.FRAME_LENGTH)
+    np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(n)
+    wave = torch.from_numpy(rng.standard_normal(
+        (2, n * F.HOP_LENGTH + F.FRAME_LENGTH)).astype(np.float32))
+    gathered = wave[..., torch.from_numpy(got).long()]
+    torch.testing.assert_close(gathered, F._frames_by_hop_slices(wave, n),
+                               atol=0, rtol=0)
+
+
+def test_rfft_normalized_features_match_golden(fbank_golden):
+    x = torch.from_numpy(fbank_golden["one_sec_in"])
+    want = fbank_golden["one_sec_normalized_full"]
+    cfg = F.FbankConfig(mean=float(fbank_golden["norm_mean"]),
+                        std=float(fbank_golden["norm_std"]))
+    got = F.ast_features(x[None], cfg, use_matmul_dft=False)[0].numpy()
+    assert got.shape == want.shape == (F.MAX_FRAMES, F.NUM_MEL_BINS)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+
+
 def test_normalized_features_match_golden(fbank_golden):
     x = torch.from_numpy(fbank_golden["one_sec_in"])
     want = fbank_golden["one_sec_normalized_full"]

@@ -1,23 +1,17 @@
 // Fused multi-head self-attention for the port's ops/attention.py.
 //
-// Replaces four of the six Pallas kernels of zenker_audio_detection_tpu/ops/
+// Replaces three of the six Pallas kernels of zenker_audio_detection_tpu/ops/
 // attention.py that compute one function on (B, S, NH, D), which is the same
 // memory as packed (B, S, H = NH * D):
-//   mha_packed        <- _attn_kernel_packed   grid (q tiles, NH, B)
 //   mha_pairs         <- _attn_kernel_pairs    grid (q tiles, NH / 2, B), two
 //                                              heads per block on one staged
 //                                              2 * D-lane K/V tile
 //   mha               <- _attn_kernel          grid (B * NH), q tiles looped
 //   mha_qblock        <- _attn_kernel_qblock   grid (q blocks, B * NH)
-// (mha_batched_heads and mha_fused run the pipelined body of
-// attention_pipelined.cu.)
+// (mha_packed, its lse forward, mha_batched_heads and mha_fused run the
+// pipelined body of attention_pipelined.cu.)
 // Each keeps its TPU counterpart's work decomposition; all of them run the
-// same flash body below, so they agree with each other row for row. One more
-// kernel runs that body for mha_packed_trainable's forward:
-//   mha_packed_lse    <- the forward of the custom VJP mha_packed_trainable
-//                        (_attn_kernel_packed under autograd); kPacked's grid
-//                        and output, bit for bit, plus each row's
-//                        log-sum-exp for the backward in attention_bwd.cu
+// same flash body below, so they agree with each other row for row.
 // Contract (reference_mha there): scores = q k^T / sqrt(D) accumulated in
 // f32, softmax in f32, p cast to the input dtype before the PV product, PV
 // accumulated in f32, output in the input dtype. A head's D lanes are read
@@ -64,8 +58,9 @@
 namespace {
 
 // The values keep the mangled names of the instances, which the build report
-// and chip_smoke.py's register check read.
-enum Kind { kPacked = 0, kPerHead = 1, kQBlock = 3, kPairs = 5 };
+// reads (0 was mha_packed's, whose kernels are in attention_ws.cu and
+// attention_pipelined.cu).
+enum Kind { kPerHead = 1, kQBlock = 3, kPairs = 5 };
 
 // One tile of 16 * W / P query rows of P heads of one batch element, bf16.
 // Token 0, lane 0 of the first head is at q + base (and k, v + base), rows
@@ -77,10 +72,8 @@ enum Kind { kPacked = 0, kPerHead = 1, kQBlock = 3, kPairs = 5 };
 // without spilling.
 //
 // The fragments are laid out as flash_common.cuh:mma_bf16 gives them, with
-// g = lane / 4 and t = lane % 4. With kLse the tile also stores each row's log-sum-exp, m + log2(l) in the
-// log2 domain with the scale folded in, at lse[lbase + row] (rows < S);
-// the output is computed exactly as without it.
-template <int D, int W, int P = 1, bool kLse = false>
+// g = lane / 4 and t = lane % 4.
+template <int D, int W, int P = 1>
 __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
@@ -88,9 +81,7 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
                                      float scale_log2,
                                      Tiles<__nv_bfloat16, D, P>& sm,
                                      __nv_bfloat16* __restrict__ out,
-                                     ptrdiff_t obase, int ldo,
-                                     float* __restrict__ lse = nullptr,
-                                     size_t lbase = 0) {
+                                     ptrdiff_t obase, int ldo) {
   using Sm = Tiles<__nv_bfloat16, D, P>;
   constexpr int kThreads = 32 * W;
   static_assert(W % P == 0, "each head takes W / P warps");
@@ -216,18 +207,14 @@ __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(out + (obase + (ptrdiff_t)r1 * ldo + c)) =
           pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
   }
-  if constexpr (kLse) {
-    if (t == 0 && r0 < S) lse[lbase + r0] = m0 + log2f(sum0);
-    if (t == 0 && r1 < S) lse[lbase + r1] = m1 + log2f(sum1);
-  }
 }
 
 // One kernel per (dtype, D, W, decomposition). The block's tiles are
 // 16 * W query rows; the grid is the one ops/attention.py:launch_geometry
 // gives for the decomposition. The launch bounds hold a thread to 128
-// registers, so that 16 warps fit on an SM: left alone, the compiler gives
-// the bf16 D = 64 body 134, only 12 warps fit, and mha_packed runs 8-9 %
-// slower at the AST shape.
+// registers, so that 16 warps fit on an SM: left alone, the compiler gave
+// the bf16 D = 64 body 134, only 12 warps fit, and the kernel then serving
+// mha_packed ran 8-9 % slower at the AST shape.
 template <typename T, int D, int W, int K>
 __global__ void __launch_bounds__(32 * W, 16 / W)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -238,10 +225,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int H = NH * D;
   const size_t seq = (size_t)S * H;  // elements of one batch element
 
-  if constexpr (K == kPacked || K == kQBlock) {
-    // one tile: grid (q tiles, NH, B) or (q blocks, B * NH)
-    const int b = K == kPacked ? blockIdx.z : blockIdx.y / NH;
-    const int h = K == kPacked ? blockIdx.y : blockIdx.y % NH;
+  if constexpr (K == kQBlock) {
+    // one tile: grid (q blocks, B * NH)
+    const int b = blockIdx.y / NH;
+    const int h = blockIdx.y % NH;
     const size_t base = b * seq + (size_t)h * D;
     tile<D, W>(q, k, v, base, S, H, blockIdx.x * R, scale_log2, sm, o, base,
                H);
@@ -279,43 +266,6 @@ pairs_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 sm, o, base, H);
 }
 
-// mha_packed's forward for mha_packed_trainable, grid (q tiles, NH, B) as
-// kPacked: the same tile body in the same order, so o is mha_packed's bit
-// for bit, and each row's log-sum-exp goes to the (B, NH, S) f32 buffer lse
-// for the backward (csrc/attention_bwd.cu). A kernel of its own, so that
-// attn_kernel's instances stay as they were.
-template <typename T, int D>
-__global__ void __launch_bounds__(128, 4)
-lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-           int S, int NH, float scale_log2) {
-  __shared__ __align__(16) Tiles<T, D> sm;
-  const int H = NH * D;
-  const size_t base =
-      blockIdx.z * ((size_t)S * H) + (size_t)blockIdx.y * D;
-  const size_t lbase = ((size_t)blockIdx.z * NH + blockIdx.y) * S;
-  tile<D, 4, 1, true>(q, k, v, base, S, H, blockIdx.x * 64, scale_log2, sm,
-                      o, base, H, lse, lbase);
-}
-
-template <typename T>
-int launch_lse(const void* q, const void* k, const void* v, void* o,
-               void* lse, int S, int NH, int D, int gx, int gy, int gz,
-               int threads, int smem, void* stream) {
-  if (threads != 128 || smem != 0) return (int)cudaErrorInvalidValue;
-  void (*kern)(const T*, const T*, const T*, T*, float*, int, int, float);
-  if (D == 32)
-    kern = lse_kernel<T, 32>;
-  else if (D == 64)
-    kern = lse_kernel<T, 64>;
-  else
-    return (int)cudaErrorInvalidValue;
-  kern<<<dim3(gx, gy, gz), threads, 0, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, S, NH,
-      kLog2e / sqrtf((float)D));
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int D, int W, int K>
 int launch(const void* q, const void* k, const void* v, void* o, int S,
            int NH, dim3 grid, int smem, cudaStream_t stream) {
@@ -339,7 +289,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int S,
 }
 
 // Picks the instance for (D, threads). mha_qblock has 4- and 8-warp tiles,
-// mha_pairs 8 warps only (4 per head), mha_packed and mha 4 warps.
+// mha_pairs 8 warps only (4 per head), mha 4 warps.
 template <typename T, int K>
 int dispatch(const void* q, const void* k, const void* v, void* o, int S,
              int NH, int D, int gx, int gy, int gz, int threads, int smem,
@@ -379,24 +329,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int S,
                           stream);                                           \
   }
 
-ATTN_ENTRY(mha_packed_bf16, __nv_bfloat16, kPacked)
-ATTN_ENTRY(mha_packed_f32, float, kPacked)
 ATTN_ENTRY(mha_pairs_bf16, __nv_bfloat16, kPairs)
 ATTN_ENTRY(mha_pairs_f32, float, kPairs)
 ATTN_ENTRY(mha_bf16, __nv_bfloat16, kPerHead)
 ATTN_ENTRY(mha_f32, float, kPerHead)
 ATTN_ENTRY(mha_qblock_bf16, __nv_bfloat16, kQBlock)
 ATTN_ENTRY(mha_qblock_f32, float, kQBlock)
-
-// mha_packed with the row log-sum-exp: as mha_packed's entry point, with
-// lse a device pointer to a contiguous (B, NH, S) f32 buffer.
-#define LSE_ENTRY(name, T)                                                   \
-  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
-                      void* lse, int S, int NH, int D, int gx, int gy,      \
-                      int gz, int threads, int smem, void* stream) {        \
-    return launch_lse<T>(q, k, v, o, lse, S, NH, D, gx, gy, gz, threads,    \
-                         smem, stream);                                      \
-  }
-
-LSE_ENTRY(mha_packed_lse_bf16, __nv_bfloat16)
-LSE_ENTRY(mha_packed_lse_f32, float)

@@ -5,8 +5,9 @@
 // there, not Pallas), and computes the same function with the same rounding
 // points. Per head, with s = q k^T and scale = 1 / sqrt(D):
 //   p    = softmax(s * scale) in f32, here exp2(s * scale_log2 - lse) from
-//          the row log-sum-exp that the forward kept (csrc/attention.cu:
-//          lse_kernel), so p is recomputed tile by tile and never stored;
+//          the row log-sum-exp that the forward kept (mha_packed_lse:
+//          attention_ws.cu, f32 attention_pipelined.cu), so p is
+//          recomputed tile by tile and never stored;
 //   dv   = bf16(p)^T g, f32 accumulate, cast to the input dtype;
 //   dp   = g v^T in f32;
 //   ds   = p (dp - delta), delta_i = sum_j p_ij dp_ij = sum_d g_id o_id,

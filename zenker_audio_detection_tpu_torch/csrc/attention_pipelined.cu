@@ -1,7 +1,21 @@
-// A flash-attention body built for Hopper, and the two (B, S, NH, D) entry
-// points of the port's ops/attention.py that run it.
+// A flash-attention body built for Hopper, and the entry points of the
+// port's ops/attention.py that run it.
 //
-// Replaces two Pallas kernels of zenker_audio_detection_tpu/ops/attention.py:
+// Replaces two Pallas kernels of zenker_audio_detection_tpu/ops/attention.py
+// and, in f32, a third and the forward of its custom VJP (their bf16 form
+// is the warp-specialised walk of attention_ws.cu):
+//   mha_packed, f32   <- _attn_kernel_packed (grid (B, q blocks) on packed
+//                        (B, S, H = NH * D) projections, heads by lane
+//                        slices). A contiguous packed tensor is the
+//                        (B, S, NH, D) memory mha_batched_heads walks, so
+//                        mha_packed launches batched_kernel_f32's instances
+//                        as they are: no kernel of its own.
+//   mha_packed_lse,   <- the forward of mha_packed_trainable (the custom
+//   f32                  VJP, _attn_kernel_packed under autograd):
+//                        batched_kernel_f32<D, true>, the same walk and
+//                        tile, which also stores each row's log-sum-exp for
+//                        the backward in attention_bwd.cu. Its output is
+//                        mha_packed's bit for bit.
 //   mha_batched_heads <- _attn_kernel_batched (grid (B), a fori_loop over
 //                        heads): all heads of one batch element per program,
 //                        to amortise the per-step DMA latency of a single
@@ -47,13 +61,13 @@
 //   * 256 threads and at most 128 registers a thread (the launch bounds), and
 //     at most 97 KB of shared memory a CTA, so 2 CTAs (16 warps) share an SM:
 //     while one waits on its products or its softmax the other issues.
-//     mha_batched_heads_occupancy_* and mha_fused_occupancy_* report what the
-//     card makes of it.
-// The f32 instances keep attention.cu's FMA tile (never TF32) under the same
-// decompositions: 8 warps of 128 rows a work item for mha_batched_heads, and
-// for mha_fused 4 warps walking the heads of 64 rows one at a time.
+//     The *_occupancy_* entry points report what the card makes of it.
+// The f32 instances keep the FMA tile of flash_common.cuh (never TF32) under
+// the same decompositions: 8 warps of 128 rows a work item for the persistent
+// walk, and for mha_fused 4 warps walking the heads of 64 rows one at a time.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,99 +75,9 @@ constexpr int kStages = 3;  // K/V tiles in the ring
 constexpr int kRowsWG = 64;  // query rows of a warpgroup (wgmma's M)
 constexpr int kThreadsWG = 128;
 constexpr int kWGs = 2;      // consumer warpgroups of a bf16 CTA
+// the kernels: the persistent walk (mha_batched_heads; f32 mha_packed and,
+// with the lse, mha_packed_lse), mha_fused's grid
 enum Fn { kBatched, kFused };
-
-// ------------------------------------------------------------------ wgmma
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of an accumulator across
-// a fence or a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// cp.async writes to shared memory become visible to wgmma's reads (the
-// async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor Format"):
-// start address >> 4 in bits 0-13, leading byte offset >> 4 in 16-29, stride
-// byte offset >> 4 in 32-45, swizzle mode in 62-63 (1: 128 B, 2: 64 B). A
-// tile here is rows of kRow bytes (one swizzle atom wide), 8-row groups
-// 8 * kRow bytes apart: that is the stride byte offset of both the K-major
-// (K in S = Q K^T) and the MN-major (V in O += P V) reading; the leading
-// byte offset is not used by either at these widths.
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint32_t kRow = D * 2;
-  constexpr uint64_t kMode = D == 64 ? 1 : 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)((8 * kRow) >> 4) << 32) | (kMode << 62);
-}
-
-// The byte offset of logical byte `off` of a tile of kRow-byte rows under
-// the swizzle the descriptor names: the 16-byte chunk index XOR the row's
-// index within the swizzle period. Tiles start 1024-byte aligned.
-template <int D>
-__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
-  constexpr uint32_t kMask = D == 64 ? 0x70 : 0x30;
-  return off ^ ((off >> 3) & kMask);
-}
-
-#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x N f32, accumulator layout) = a (64 x 16 bf16, registers) * B
-// (16 x N bf16 at desc) + (scale_d ? d : 0). Per warp w of the warpgroup,
-// rows 16w..16w+15; a and d are laid out as the mma.m16n8k16 fragments
-// (flash_common.cuh), d[4n..4n+3] the C fragment of columns 8n..8n+7. kTrans
-// reads B MN-major (N contiguous).
-template <int kTrans>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
-                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTrans),
-        "r"(scale_d));
-}
-
-template <int kTrans>
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
-                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
-      : WG_D8(0), WG_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTrans),
-        "r"(scale_d));
-}
-#undef WG_D8
-
-template <int N, int kTrans>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
-                                      uint64_t desc, int scale_d) {
-  if constexpr (N == 64)
-    wgmma_n64<kTrans>(d, a, desc, scale_d);
-  else
-    wgmma_n32<kTrans>(d, a, desc, scale_d);
-}
 
 // ------------------------------------------------------------- bf16 body
 // The ring: kStages stages of P heads' K tiles then their V tiles, each a
@@ -264,7 +188,7 @@ __device__ __forceinline__ void item(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma<64, 0>(s, qf[kk], smem_desc<D>(ks + kk * 32), kk);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // s[4n + e]: row g (e < 2) or g + 8, key 8n + 2t + (e & 1)
@@ -316,7 +240,7 @@ __device__ __forceinline__ void item(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
       wgmma<D, 1>(acc, pf[kk], smem_desc<D>(vs + kk * 16 * D * 2), 1);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
   }
   if (!live) return;
@@ -377,12 +301,14 @@ fused_kernel(const __nv_bfloat16* __restrict__ q,
                min(2, NH - h0), ring, scale_log2);
 }
 
-// f32: attention.cu's FMA tile (flash_common.cuh) under the same walks.
-template <int D>
+// f32: the FMA tile (flash_common.cuh) under the same walks. With kLse
+// (mha_packed_lse) each row's log-sum-exp also goes to the (B, NH, S) f32
+// buffer lse, the last argument, which the other kernels do not take.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(256, 2)
 batched_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int B,
-                   int S, int NH, float scale_log2) {
+                   int S, int NH, float scale_log2, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char dyn[];
   auto& sm = *reinterpret_cast<Tiles<float, D>*>(dyn);
   const int H = NH * D, nqb = (S + 127) / 128;
@@ -390,7 +316,8 @@ batched_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     const int b = i / (NH * nqb), h = i / nqb % NH, qb = i % nqb;
     const size_t base = (size_t)b * S * H + (size_t)h * D;
-    tile<D, 8>(q, k, v, base, S, H, qb * 128, scale_log2, sm, o, base, H);
+    tile<D, 8, 1, kLse>(q, k, v, base, S, H, qb * 128, scale_log2, sm, o,
+                        base, H, lse, ((size_t)b * NH + h) * S);
   }
 }
 
@@ -409,43 +336,43 @@ fused_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ launch
-template <typename T>
-using Kern = void (*)(const T*, const T*, const T*, T*, int, int, int, float);
-
-// The instance of (function, dtype, D), with the threads and the dynamic
-// shared memory it needs; nullptr for a D it is not compiled for. These
-// numbers are ops/attention.py:launch_geometry's.
-template <typename T, int F>
-Kern<T> instance(int D, int* threads, int* smem) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  *threads = kBf16 || F == kBatched ? kWGs * kThreadsWG : 128;
-  if constexpr (kBf16) {
-    constexpr int P = F == kFused ? 2 : 1;
-    if (D == 32) {
-      *smem = Ring<32, P>::kBytes;
-      return F == kFused ? fused_kernel<32> : batched_kernel<32>;
-    }
-    if (D == 64) {
-      *smem = Ring<64, P>::kBytes;
-      return F == kFused ? fused_kernel<64> : batched_kernel<64>;
-    }
+// The kernel of (function, dtype, D, lse). Kernels are handled as
+// `const void*` and launched with cudaLaunchKernel, which reads as many
+// arguments as the kernel takes: the lse form takes one pointer more, last.
+template <typename T, int F, int D, bool kLse>
+const void* kernel() {
+  static_assert(!kLse || (sizeof(T) == 4 && F == kBatched),
+                "the lse form is f32 mha_packed_lse (bf16: attention_ws.cu)");
+  if constexpr (sizeof(T) == 2) {
+    if constexpr (F == kFused) return (const void*)fused_kernel<D>;
+    return (const void*)batched_kernel<D>;
   } else {
-    if (D == 32) {
-      *smem = sizeof(Tiles<float, 32>);
-      return F == kFused ? fused_kernel_f32<32> : batched_kernel_f32<32>;
-    }
-    if (D == 64) {
-      *smem = sizeof(Tiles<float, 64>);
-      return F == kFused ? fused_kernel_f32<64> : batched_kernel_f32<64>;
-    }
+    if constexpr (F == kFused) return (const void*)fused_kernel_f32<D>;
+    return (const void*)batched_kernel_f32<D, kLse>;
   }
-  return nullptr;
 }
 
-template <typename T, int F>
-Kern<T> prepared(int D, int threads, int smem) {
+// The instance of (function, dtype, lse), with the threads and the dynamic
+// shared memory it needs; nullptr for a D it is not compiled for. These
+// numbers are ops/attention.py:launch_geometry's.
+template <typename T, int F, bool kLse>
+const void* instance(int D, int* threads, int* smem) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  *threads = kBf16 || F != kFused ? kWGs * kThreadsWG : 128;
+  if (D != 32 && D != 64) return nullptr;
+  if constexpr (kBf16) {
+    constexpr int P = F == kFused ? 2 : 1;
+    *smem = D == 32 ? Ring<32, P>::kBytes : Ring<64, P>::kBytes;
+  } else {
+    *smem = D == 32 ? sizeof(Tiles<float, 32>) : sizeof(Tiles<float, 64>);
+  }
+  return D == 32 ? kernel<T, F, 32, kLse>() : kernel<T, F, 64, kLse>();
+}
+
+template <typename T, int F, bool kLse>
+const void* prepared(int D, int threads, int smem) {
   int need_threads = 0, need_smem = 0;
-  Kern<T> kern = instance<T, F>(D, &need_threads, &need_smem);
+  const void* kern = instance<T, F, kLse>(D, &need_threads, &need_smem);
   if (kern == nullptr || threads != need_threads || smem < need_smem)
     return nullptr;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -454,21 +381,23 @@ Kern<T> prepared(int D, int threads, int smem) {
   return kern;
 }
 
-template <typename T, int F>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int NH, int D, int gx, int gy, int gz, int threads, int smem,
-           void* stream) {
-  Kern<T> kern = prepared<T, F>(D, threads, smem);
+// lse is the (B, NH, S) f32 buffer of the lse form, unread by the others.
+template <typename T, int F, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int NH, int D, int gx, int gy, int gz, int threads,
+           int smem, void* stream) {
+  const void* kern = prepared<T, F, kLse>(D, threads, smem);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  kern<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, B, S, NH,
-      kLog2e / sqrtf((float)D));
+  float scale_log2 = kLog2e / sqrtf((float)D);
+  void* args[] = {&q, &k, &v, &o, &B, &S, &NH, &scale_log2, &lse};
+  cudaLaunchKernel(kern, dim3(gx, gy, gz), dim3(threads), args, smem,
+                   (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int F>
+template <typename T, int F, bool kLse>
 int occupancy(int D, int threads, int smem) {
-  Kern<T> kern = prepared<T, F>(D, threads, smem);
+  const void* kern = prepared<T, F, kLse>(D, threads, smem);
   if (kern == nullptr) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t err =
@@ -485,29 +414,45 @@ int occupancy(int D, int threads, int smem) {
 // launch_geometry; `stream` is a cudaStream_t. Returns the cudaError_t of
 // the launch (0 on success); an instance that does not exist, or threads or
 // shared memory other than it needs, is cudaErrorInvalidValue. The caller
-// validates shapes.
+// validates shapes. f32 mha_packed is mha_batched_heads' kernel on the same
+// memory, so both entry points launch one instance.
 #define PIPE_ENTRY(name, T, F)                                               \
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
                       int threads, int smem, void* stream) {                 \
-    return launch<T, F>(q, k, v, o, B, S, NH, D, gx, gy, gz, threads, smem, \
-                        stream);                                             \
+    return launch<T, F, false>(q, k, v, o, nullptr, B, S, NH, D, gx, gy,    \
+                               gz, threads, smem, stream);                   \
   }
 
+PIPE_ENTRY(mha_packed_f32, float, kBatched)
 PIPE_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kBatched)
 PIPE_ENTRY(mha_batched_heads_f32, float, kBatched)
 PIPE_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
 PIPE_ENTRY(mha_fused_f32, float, kFused)
 
+// f32 mha_packed with the row log-sum-exp: as mha_packed's entry point,
+// with lse a device pointer to a contiguous (B, NH, S) f32 buffer.
+#define LSE_ENTRY(name, T)                                                   \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      void* lse, int B, int S, int NH, int D, int gx,       \
+                      int gy, int gz, int threads, int smem, void* stream) { \
+    return launch<T, kBatched, true>(q, k, v, o, lse, B, S, NH, D, gx, gy,  \
+                                     gz, threads, smem, stream);             \
+  }
+
+LSE_ENTRY(mha_packed_lse_f32, float)
+
 // The CTAs of an instance that fit on one SM at (threads, smem), as
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them; a negative
 // cudaError_t on failure.
-#define OCC_ENTRY(name, T, F)                                   \
+#define OCC_ENTRY(name, T, F, kLse)                             \
   extern "C" int name(int D, int threads, int smem) {           \
-    return occupancy<T, F>(D, threads, smem);                   \
+    return occupancy<T, F, kLse>(D, threads, smem);             \
   }
 
-OCC_ENTRY(mha_batched_heads_occupancy_bf16, __nv_bfloat16, kBatched)
-OCC_ENTRY(mha_batched_heads_occupancy_f32, float, kBatched)
-OCC_ENTRY(mha_fused_occupancy_bf16, __nv_bfloat16, kFused)
-OCC_ENTRY(mha_fused_occupancy_f32, float, kFused)
+OCC_ENTRY(mha_packed_occupancy_f32, float, kBatched, false)
+OCC_ENTRY(mha_packed_lse_occupancy_f32, float, kBatched, true)
+OCC_ENTRY(mha_batched_heads_occupancy_bf16, __nv_bfloat16, kBatched, false)
+OCC_ENTRY(mha_batched_heads_occupancy_f32, float, kBatched, false)
+OCC_ENTRY(mha_fused_occupancy_bf16, __nv_bfloat16, kFused, false)
+OCC_ENTRY(mha_fused_occupancy_f32, float, kFused, false)

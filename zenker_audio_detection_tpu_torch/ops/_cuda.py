@@ -33,21 +33,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (void*..., int..., void* stream); every entry point returns an int, a
 # cudaError_t for a launch.
 _DTYPES = ("bf16", "f32")
+
+
+def _walks(names: list[str]) -> dict:
+    """The entry points of the persistent walks' sources: per name (with
+    its dtype) the launch, whose lse forward also takes the lse buffer, and
+    the instance's CTAs per SM (D, threads, smem)."""
+    return {**{name: (5 if "_lse_" in name else 4, 9, True)
+               for name in names},
+            **{name.replace("_bf16", "_occupancy_bf16")
+               .replace("_f32", "_occupancy_f32"): (0, 3, False)
+               for name in names}}
+
+
 _ENTRY_POINTS = {
-    "attention": {**{f"{fn}_{dtype}": (4, 8, True)
-                     for fn in ("mha_packed", "mha_pairs", "mha",
-                                "mha_qblock")
-                     for dtype in _DTYPES},
-                  **{f"mha_packed_lse_{dtype}": (5, 8, True)
-                     for dtype in _DTYPES}},
+    "attention": {f"{fn}_{dtype}": (4, 8, True)
+                  for fn in ("mha_pairs", "mha", "mha_qblock")
+                  for dtype in _DTYPES},
     "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8, True)
                       for part in ("dq", "dkdv") for dtype in _DTYPES},
-    # the launches, then each instance's CTAs per SM (D, threads, smem)
-    "attention_pipelined": {
-        **{f"{fn}_{dtype}": (4, 9, True)
-           for fn in ("mha_batched_heads", "mha_fused") for dtype in _DTYPES},
-        **{f"{fn}_occupancy_{dtype}": (0, 3, False)
-           for fn in ("mha_batched_heads", "mha_fused") for dtype in _DTYPES}},
+    "attention_pipelined": _walks(
+        [f"{fn}_{dtype}" for fn in ("mha_batched_heads", "mha_fused")
+         for dtype in _DTYPES] + ["mha_packed_f32", "mha_packed_lse_f32"]),
+    "attention_ws": _walks(["mha_packed_bf16", "mha_packed_lse_bf16"]),
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

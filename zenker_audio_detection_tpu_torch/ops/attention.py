@@ -18,9 +18,12 @@ log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
 probabilities tile by tile.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention.cu`, `csrc/attention_pipelined.cu` (`mha_batched_heads` and
-`mha_fused`: a cp.async ring and wgmma, under decompositions that fill the
-card) or `csrc/attention_bwd.cu`; on CPU tensors each runs
+`csrc/attention.cu`, `csrc/attention_ws.cu` (bf16 `mha_packed` and
+`mha_packed_lse`: a persistent CTA per SM, a TMA producer warpgroup and two
+consumer warpgroups), `csrc/attention_pipelined.cu` (`mha_batched_heads`,
+`mha_fused` and the f32 `mha_packed` and `mha_packed_lse`: a cp.async ring
+and wgmma, under decompositions that fill the card) or
+`csrc/attention_bwd.cu`; on CPU tensors each runs
 the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
 `mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
 fallback from a kernel to the plain version on the card: a CUDA tensor the
@@ -32,7 +35,9 @@ inside the kernel and query rows past S are not stored.
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 from dataclasses import dataclass
 
 import torch
@@ -60,10 +65,19 @@ _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
 _QBLOCK_MAX_ROWS = 128  # mha_qblock's 8-warp tile
 _PAIR_HEADS = 2  # heads of one mha_pairs block
-# csrc/attention_pipelined.cu: the kernels of mha_batched_heads and mha_fused
-_PIPELINED = ("mha_batched_heads", "mha_fused")
+# csrc/attention_pipelined.cu: the persistent (batch, head, 128-row block)
+# walk of mha_batched_heads, which also takes packed (B, S, H) tensors for
+# the f32 mha_packed and its lse forward, and mha_fused's grid
+_PERSISTENT = ("mha_batched_heads", "mha_packed", "mha_packed_lse")
+_PIPELINED = (*_PERSISTENT, "mha_fused")
 _RING_STAGES = 3  # bf16 K/V tiles in flight (kStages)
 _RING_ALIGN = 1024  # slack to align the ring for the 128-byte swizzle
+# csrc/attention_ws.cu: the bf16 mha_packed and mha_packed_lse, the same
+# walk with one CTA per SM: a producer warpgroup and consumer warpgroups of
+# 64 rows, a ring of K and V tiles and its mbarriers (`ws_tile`)
+_WS = ("mha_packed", "mha_packed_lse")
+_WS_TILE = re.compile(r"^constexpr int (kKeys|kConsumers|kStages) = (\d+);",
+                      re.MULTILINE)
 H100_SMS = 132  # SMs of an H100 SXM, the default of launch_geometry's sms
 
 
@@ -101,11 +115,12 @@ def mha_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @dataclass(frozen=True)
 class Launch:
     """How one kernel call is cut: the CUDA grid, the threads of a block
-    (two per query row and head), the query rows of a block's tile (of a
-    work item for the persistent `mha_batched_heads`), the bytes of dynamic
-    shared memory and, for the kernels of `csrc/attention_pipelined.cu`, the
-    CTAs per SM the design assumes (`pipelined_occupancy` reads what the
-    card makes of it)."""
+    (two per query row and head, and a producer warpgroup in
+    `csrc/attention_ws.cu`), the query rows of a block's tile (of a work
+    item for the persistent walk), the bytes of dynamic shared memory and,
+    for the kernels of `csrc/attention_pipelined.cu` and
+    `csrc/attention_ws.cu`, the CTAs per SM the design assumes
+    (`pipelined_occupancy` reads what the card makes of it)."""
     grid: tuple[int, int, int]
     threads: int
     rows: int
@@ -123,6 +138,24 @@ def qblock_rows(block_q: int) -> int:
     return min(_round_up(block_q, _TILE_ROWS), _QBLOCK_MAX_ROWS)
 
 
+def parse_ws_tile(text: str) -> tuple[int, int, int]:
+    """(keys per K/V tile, consumer warpgroups, ring stages) of the text of
+    `csrc/attention_ws.cu` or of a variant of it: its kKeys, kConsumers and
+    kStages constexprs."""
+    found = dict(_WS_TILE.findall(text))
+    if sorted(found) != ["kConsumers", "kKeys", "kStages"]:
+        raise ValueError("no kKeys, kConsumers and kStages constexprs in the "
+                         "source text")
+    return int(found["kKeys"]), int(found["kConsumers"]), int(found["kStages"])
+
+
+@functools.lru_cache(maxsize=None)
+def ws_tile() -> tuple[int, int, int]:
+    """`parse_ws_tile` of `csrc/attention_ws.cu`, read once: the source is
+    the one place the tile shape is written."""
+    return parse_ws_tile((_cuda.CSRC / "attention_ws.cu").read_text())
+
+
 def _static_smem(D: int, itemsize: int, heads: int = 1) -> int:
     """The K/V tiles of `csrc/attention.cu:Tiles` for `heads` heads side by
     side (their heads * D contiguous lanes), in bytes."""
@@ -133,50 +166,60 @@ def _static_smem(D: int, itemsize: int, heads: int = 1) -> int:
 
 
 def _pipelined(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
-               sms: int):
-    """(grid, rows, heads, smem, ctas_per_sm) of the kernels of
-    `csrc/attention_pipelined.cu`. bf16: two warpgroups
-    (256 threads), a ring of `_RING_STAGES` stages of 64-key K and V tiles
-    for one head (`mha_batched_heads`) or a head pair (`mha_fused`), 2 CTAs
-    per SM. f32: the FMA tile's K/V tiles of one head, 8 warps and 2 CTAs
-    per SM (`mha_batched_heads`) or 4 warps and 4 (`mha_fused`)."""
+               sms: int, tile: tuple[int, int, int] | None):
+    """(grid, rows, threads, smem, ctas_per_sm) of the kernels of
+    `csrc/attention_pipelined.cu` and `csrc/attention_ws.cu`. The
+    persistent walk: bf16 `mha_packed` and `mha_packed_lse` one CTA per SM
+    of a producer and 64-row consumer warpgroups (attention_ws.cu, of tile
+    shape `tile`, by default `ws_tile()`);
+    otherwise two warpgroups (256 threads) and a ring of `_RING_STAGES`
+    stages of 64-key K and V tiles for one head, 2 CTAs per SM, or in f32
+    the FMA tile's K/V tiles, 8 warps and 2 CTAs per SM. `mha_fused`: bf16
+    as the walk with a head pair's tiles, f32 4 warps and 4 CTAs per SM."""
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kind} is compiled for head widths "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     if sms < 1:
         raise ValueError(f"sms must be at least 1, got {sms}")
-    bf16, heads = itemsize == 2, 1
-    if bf16:
-        heads = _PAIR_HEADS if kind == "mha_fused" else 1
-        smem = (_RING_STAGES * 2 * heads * _TILE_KEYS * D * itemsize
-                + _RING_ALIGN)
-    else:
-        smem = _static_smem(D, itemsize)
-    if kind == "mha_batched_heads":
-        # persistent: sms x 2 CTAs walk the (batch, head, 128-row block)
-        # items, i = blockIdx.x + j * gridDim.x
-        rows, ctas = 2 * _TILE_ROWS, 2
-        items = B * NH * cdiv(S, rows)
-        if items > _MAX_GRID_X:
-            raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
-                             f"{items} work items, beyond a 32-bit count")
-        grid = (min(items, sms * ctas), 1, 1)
-    else:
+    bf16 = itemsize == 2
+    if kind == "mha_fused":
         # one CTA per (64-row query block, batch element), all heads
-        rows, ctas = _TILE_ROWS, 2 if bf16 else 4
-        grid = (cdiv(S, rows), B, 1)
-    return grid, rows, heads, smem, ctas
+        smem = (_RING_STAGES * 2 * _PAIR_HEADS * _TILE_KEYS * D * itemsize
+                + _RING_ALIGN) if bf16 else _static_smem(D, itemsize)
+        rows = _TILE_ROWS
+        threads = 2 * rows * (_PAIR_HEADS if bf16 else 1)
+        return (cdiv(S, rows), B, 1), rows, threads, smem, 2 if bf16 else 4
+    # persistent: sms x ctas CTAs walk the (batch, head, row block) items,
+    # i = blockIdx.x + j * gridDim.x; 128 rows, or 64 per consumer
+    # warpgroup of attention_ws.cu
+    rows = 2 * _TILE_ROWS
+    if bf16 and kind in _WS:
+        keys, consumers, stages = tile or ws_tile()
+        rows, threads, ctas = _TILE_ROWS * consumers, 128 * (consumers + 1), 1
+        smem = (_RING_ALIGN + stages * 2 * keys * D * itemsize
+                + 2 * stages * 8)  # the ring, then its mbarriers
+    else:
+        threads, ctas = 2 * rows, 2
+        smem = (_RING_STAGES * 2 * _TILE_KEYS * D * itemsize + _RING_ALIGN
+                if bf16 else _static_smem(D, itemsize))
+    items = B * NH * cdiv(S, rows)
+    if items > _MAX_GRID_X:
+        raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
+                         f"{items} work items, beyond a 32-bit count")
+    return (min(items, sms * ctas), 1, 1), rows, threads, smem, ctas
 
 
 def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
-                    itemsize: int, block_q: int = 256,
-                    sms: int = H100_SMS) -> Launch:
+                    itemsize: int, block_q: int = 256, sms: int = H100_SMS,
+                    tile: tuple[int, int, int] | None = None) -> Launch:
     """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
-    card's SM count, which sizes `mha_batched_heads`' persistent grid.
-    Query blocks are counted with `cdiv`, so the last, ragged one is
-    launched too."""
-    rows, smem, heads, ctas = _TILE_ROWS, 0, 1, None
-    if kind in ("mha_packed", "mha_packed_lse", "mha_packed_bwd_dq"):
+    card's SM count, which sizes the persistent grid of `mha_packed`,
+    `mha_packed_lse` and `mha_batched_heads`; `tile` is the shape of a
+    variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the source's own
+    by default. Query blocks are counted with `cdiv`, so the last, ragged
+    one is launched too."""
+    rows, smem, heads, ctas, threads = _TILE_ROWS, 0, 1, None, None
+    if kind == "mha_packed_bwd_dq":
         grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
     elif kind == "mha_packed_bwd_dkdv":
         grid = (cdiv(S, rows), NH, B)  # 64-key tiles: rows are keys here
@@ -196,15 +239,15 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
         rows = qblock_rows(block_q)
         grid = (cdiv(S, rows), B * NH, 1)
     elif kind in _PIPELINED:
-        qblock_rows(block_q)  # validates; mha_fused's rows are 64 for all
-        grid, rows, heads, smem, ctas = _pipelined(kind, B, S, NH, D,
-                                                   itemsize, sms)
+        qblock_rows(block_q)  # validates; the rows do not depend on it
+        grid, rows, threads, smem, ctas = _pipelined(kind, B, S, NH, D,
+                                                     itemsize, sms, tile)
     else:
         raise ValueError(f"no attention kernel named {kind!r}")
     if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} needs the "
                          f"grid {grid}, beyond CUDA's limits")
-    return Launch(grid, 2 * rows * heads, rows, smem, ctas)
+    return Launch(grid, threads or 2 * rows * heads, rows, smem, ctas)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
@@ -255,6 +298,14 @@ def _suffix(x: torch.Tensor) -> str:
     return "bf16" if x.dtype == torch.bfloat16 else "f32"
 
 
+def _source(kind: str, itemsize: int) -> str:
+    """The csrc/ source of `kind`'s forward kernel for the dtype of
+    `itemsize` bytes."""
+    if kind in _WS and itemsize == 2:
+        return "attention_ws"
+    return "attention_pipelined" if kind in _PIPELINED else "attention"
+
+
 def _run(source: str, fn_name: str, tensors, ints, device) -> None:
     """Calls C entry point `fn_name` of `csrc/<source>.cu` with the tensors'
     device pointers, the ints and the current stream; raises if the launch
@@ -268,31 +319,42 @@ def _run(source: str, fn_name: str, tensors, ints, device) -> None:
                            f"{err}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of CUDA `device`, read once per device; they size the
+    persistent grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B: int, S: int, NH: int, D: int, block_q: int = 256,
-            sms: int = H100_SMS) -> torch.Tensor:
+            lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launches `kind`'s kernel on q, k, v ((B, S, NH * D) memory) and
+    returns its output; `lse`, the (B, NH, S) f32 buffer of the lse
+    forward, is written too where given."""
     _check_kernel(q, k, v, NH)
-    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q, sms)
+    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q,
+                          sm_count(q.device))
     out = torch.empty_like(q)
-    source, ints = "attention", (S, NH, D)
-    if kind in _PIPELINED:
-        source, ints = "attention_pipelined", (B, S, NH, D)
-    _run(source, f"{kind}_{_suffix(q)}", (q, k, v, out),
+    ints = (B, S, NH, D) if kind in _PIPELINED else (S, NH, D)
+    tensors = (q, k, v, out) if lse is None else (q, k, v, out, lse)
+    _run(_source(kind, q.element_size()), f"{kind}_{_suffix(q)}", tensors,
          (*ints, *geo.grid, geo.threads, geo.smem), q.device)
     return out
 
 
 def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
-    """The CTAs of `kind`'s kernel (`mha_batched_heads` or `mha_fused`, of
-    the dtype of `itemsize` bytes, head width D) that fit on one SM of the
-    current card at `launch_geometry`'s threads and shared memory, as
+    """The CTAs of `kind`'s kernel (`mha_packed`, `mha_packed_lse`,
+    `mha_batched_heads` or `mha_fused`, of the dtype of `itemsize` bytes,
+    head width D) that fit on one SM of the current card at
+    `launch_geometry`'s threads and shared memory, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them. Builds the
     kernels if needed; raises on a CUDA error."""
     if kind not in _PIPELINED:
         raise ValueError(f"no pipelined attention kernel named {kind!r}")
     geo = launch_geometry(kind, 1, _TILE_KEYS, 1, D, itemsize)
     suffix = "bf16" if itemsize == 2 else "f32"
-    fn = getattr(_cuda.load("attention_pipelined"),
+    fn = getattr(_cuda.load(_source(kind, itemsize)),
                  f"{kind}_occupancy_{suffix}")
     blocks = fn(D, geo.threads, geo.smem)
     if blocks < 0:
@@ -302,19 +364,29 @@ def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
 
 
 def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               num_heads: int) -> torch.Tensor:
+               num_heads: int, block_q: int = 256) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v per head on packed (B, S, H) tensors.
 
     CUDA tensors (bf16 or f32, contiguous, D = H / num_heads in
-    KERNEL_HEAD_DIMS) go to the Hopper kernel, one block per 64-row query
-    tile, head and batch element; CPU tensors go to `mha_packed_reference`.
-    Each kernel launch adds one to `mha_packed.launches`."""
+    KERNEL_HEAD_DIMS) go to a persistent walk over (batch element, head,
+    query row block) items: a contiguous (B, S, H) tensor is the
+    (B, S, NH, D) memory `mha_batched_heads` walks. bf16 runs the
+    warp-specialised walk of `csrc/attention_ws.cu` (one CTA per SM, K/V
+    tiles by TMA), f32 `mha_batched_heads`' own kernel
+    (`csrc/attention_pipelined.cu`). CPU tensors go to
+    `mha_packed_reference`. `block_q` >= 1 is the JAX function's
+    query block; each row's result does not depend on it, so every value
+    gives the same output. Each kernel launch adds one to
+    `mha_packed.launches`."""
     _check(q, k, v, "mha_packed", 3)
+    if block_q < 1:
+        raise ValueError(f"block_q must be at least 1, got {block_q}")
     _check_heads(q, num_heads)
     if q.device.type == "cpu":
         return mha_packed_reference(q, k, v, num_heads)
     B, S, H = q.shape
-    out = _launch("mha_packed", q, k, v, B, S, num_heads, H // num_heads)
+    out = _launch("mha_packed", q, k, v, B, S, num_heads, H // num_heads,
+                  block_q)
     mha_packed.launches += 1
     return out
 
@@ -329,16 +401,17 @@ def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     it: warps 0-3 take head 2p, warps 4-7 head 2p + 1. The TPU kernel's
     block-diagonal zero padding, which fills its 128-wide matrix unit, is
     not carried over: it would double the products here. With an odd
-    `num_heads` it is `mha_packed`, as the JAX function is (that launch
-    counts in `mha_packed.launches`). `block_q` >= 1 is accepted and does
-    not change the output. CPU tensors run `mha_packed_reference`. Each
-    kernel launch adds one to `mha_pairs.launches`."""
+    `num_heads` it is `mha_packed` with the same `block_q`, as the JAX
+    function is (that launch counts in `mha_packed.launches`). `block_q` >= 1
+    is accepted and does not change the output. CPU tensors run
+    `mha_packed_reference`. Each kernel launch adds one to
+    `mha_pairs.launches`."""
     _check(q, k, v, "mha_pairs", 3)
     if block_q < 1:
         raise ValueError(f"block_q must be at least 1, got {block_q}")
     _check_heads(q, num_heads)
     if num_heads % _PAIR_HEADS:
-        return mha_packed(q, k, v, num_heads=num_heads)
+        return mha_packed(q, k, v, num_heads=num_heads, block_q=block_q)
     if q.device.type == "cpu":
         return mha_packed_reference(q, k, v, num_heads)
     B, S, H = q.shape
@@ -458,8 +531,10 @@ def mha_packed_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward: returns (o, lse), lse (B, NH, S) f32 as
     `mha_packed_lse_reference` defines it.
 
-    CUDA tensors go to `csrc/attention.cu:lse_kernel`, `mha_packed`'s tile
-    body and grid, so o is `mha_packed`'s output bit for bit; CPU tensors to
+    CUDA tensors go to `mha_packed`'s kernel with an lse epilogue
+    (`csrc/attention_ws.cu` in bf16, `csrc/attention_pipelined.cu` in f32):
+    the same code in the same order, so o is `mha_packed`'s output bit for
+    bit. CPU tensors go to
     `mha_packed_lse_reference`. Each kernel launch adds one to
     `mha_packed_lse.launches`."""
     _check(q, k, v, "mha_packed_lse", 3)
@@ -467,14 +542,9 @@ def mha_packed_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return mha_packed_lse_reference(q, k, v, num_heads)
     B, S, H = q.shape
-    D = H // num_heads
-    _check_kernel(q, k, v, num_heads)
-    geo = launch_geometry("mha_packed_lse", B, S, num_heads, D,
-                          q.element_size())
-    o = torch.empty_like(q)
     lse = torch.empty(B, num_heads, S, dtype=torch.float32, device=q.device)
-    _run("attention", f"mha_packed_lse_{_suffix(q)}", (q, k, v, o, lse),
-         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    o = _launch("mha_packed_lse", q, k, v, B, S, num_heads, H // num_heads,
+                lse=lse)
     mha_packed_lse.launches += 1
     return o, lse
 
@@ -623,8 +693,7 @@ def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block_q must be at least 1, got {block_q}")
     if q.device.type == "cpu":
         return reference_mha(q, k, v)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    out = _launch(kind, q, k, v, *q.shape, block_q, sms)
+    out = _launch(kind, q, k, v, *q.shape, block_q)
     entry.launches += 1
     return out
 

@@ -9,8 +9,9 @@ Port of the JAX package's `ops/fbank.py`, with the same numerics as
   pad/truncate to 1024 frames -> (x - mean) / (2 * std)
 
 The DFT of a 400-sample frame zero-padded to 512 is a linear map, so the
-front end is three f32 matmuls (power = (f C)^2 + (f S)^2, mel = power M).
-They run in true f32 (`utils.precision.full_f32`): with TF32 the log turns
+front end is three f32 matmuls (power = (f C)^2 + (f S)^2, mel = power M);
+`use_matmul_dft=False` takes the power from `torch.fft.rfft` instead, as
+the JAX package's option does. They run in true f32 (`utils.precision.full_f32`): with TF32 the log turns
 the lost mantissa bits into O(0.5) errors in low-power mel bins.
 
 For long recordings, sliding windows on the 160-sample frame grid share
@@ -136,10 +137,19 @@ class FbankConfig:
     std: float = AUDIOSET_STD
 
 
+def frame_indices(n_frames: int) -> np.ndarray:
+    """(n_frames, FRAME_LENGTH) int32 sample-index matrix of snip-edges
+    framing: row i holds i * HOP_LENGTH .. i * HOP_LENGTH + FRAME_LENGTH - 1."""
+    starts = np.arange(n_frames, dtype=np.int32)[:, None] * HOP_LENGTH
+    offs = np.arange(FRAME_LENGTH, dtype=np.int32)[None, :]
+    return starts + offs
+
+
 def _frames_by_hop_slices(waveform: torch.Tensor, n_frames: int) -> torch.Tensor:
     """Snip-edges framing as reshape + 3 contiguous slices + concat.
 
-    With FRAME_LENGTH = 400 = 2*HOP + 80, frame i is
+    Sample-identical to `waveform[..., frame_indices(n_frames)]` without the
+    (n_frames, 400) gather. With FRAME_LENGTH = 400 = 2*HOP + 80, frame i is
     hop[i] ++ hop[i+1] ++ hop[i+2][:80]; the zero-pad up to (n_frames+2) hops
     only touches samples beyond what emitted frames read."""
     hop2 = FRAME_LENGTH - 2 * HOP_LENGTH
@@ -162,13 +172,16 @@ def _preprocess_frames(frames: torch.Tensor, window: torch.Tensor) -> torch.Tens
     return torch.cat([head, tail], dim=-1) * window
 
 
-def logmel_frames(waveform: torch.Tensor, n_frames: int) -> torch.Tensor:
+def logmel_frames(waveform: torch.Tensor, n_frames: int, *,
+                  use_matmul_dft: bool = True) -> torch.Tensor:
     """Log-mel features for all frames of `waveform`.
 
     Args:
       waveform: (..., num_samples) float32 or int16 audio at 16 kHz; int16
         is scaled by 1/32768 on the tensor's device.
       n_frames: frame count (use `num_frames(num_samples)`).
+      use_matmul_dft: the DFT as two f32 matmuls (the default, the engine's
+        path) instead of `torch.fft.rfft`; both run on the tensor's device.
 
     Returns:
       (..., n_frames, NUM_MEL_BINS) float32 log-mel features (unnormalized,
@@ -184,9 +197,13 @@ def logmel_frames(waveform: torch.Tensor, n_frames: int) -> torch.Tensor:
     frames = _preprocess_frames(_frames_by_hop_slices(waveform, n_frames),
                                 window)
     with full_f32():
-        re = torch.matmul(frames, cos_m)
-        im = torch.matmul(frames, sin_m)
-        mel_energies = torch.matmul(re * re + im * im, mel)
+        if use_matmul_dft:
+            re = torch.matmul(frames, cos_m)
+            im = torch.matmul(frames, sin_m)
+            power = re * re + im * im
+        else:
+            power = torch.fft.rfft(frames, n=FFT_LENGTH, dim=-1).abs() ** 2
+        mel_energies = torch.matmul(power, mel)
     return torch.log(torch.clamp_min(mel_energies, MEL_FLOOR))
 
 
@@ -207,17 +224,19 @@ def pad_and_normalize(feats: torch.Tensor,
 
 
 def ast_features(waveforms: torch.Tensor,
-                 config: FbankConfig = FbankConfig()) -> torch.Tensor:
+                 config: FbankConfig = FbankConfig(), *,
+                 use_matmul_dft: bool = True) -> torch.Tensor:
     """Full AST feature path: (B, num_samples) -> (B, max_length, 128).
 
     A sub-frame waveform (< 400 samples) yields all-pad features, as HF
-    does."""
+    does. `use_matmul_dft` as in `logmel_frames`."""
     n = num_frames(waveforms.shape[-1])
     if n <= 0:
         feats = torch.zeros(waveforms.shape[:-1] + (0, NUM_MEL_BINS),
                             dtype=torch.float32, device=waveforms.device)
         return pad_and_normalize(feats, config)
-    return pad_and_normalize(logmel_frames(waveforms, n), config)
+    return pad_and_normalize(
+        logmel_frames(waveforms, n, use_matmul_dft=use_matmul_dft), config)
 
 
 def window_frame_geometry(window_sec: float, hop_sec: float,
