@@ -16,9 +16,9 @@ fails the run loudly:
      walk of csrc/attention_ws.cu) keeps to its launch bounds' registers
      with its setmaxnreg in force, and mha_batched_heads' to 128; prints the
      CTAs per SM the card fits of every instance of csrc/attention_ws.cu and
-     csrc/attention_pipelined.cu (mha_packed, mha_packed_lse,
-     mha_batched_heads, mha_fused, each in bf16 and f32) and fails below the
-     number that launch_geometry's grid assumes;
+     csrc/attention_pipelined.cu (mha_packed, mha_packed_lse, mha,
+     mha_pairs, mha_batched_heads, mha_fused, each in bf16 and f32) and
+     fails below the number that launch_geometry's grid assumes;
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, and on the persistent walk's hard
      cases: B=1 (fewer work items than SMs), B=3, NH 1, 3 and 28, D=32,
@@ -32,18 +32,22 @@ fails the run loudly:
      (128, 146, 12, 64) bf16 with the launch counters zeroed just before
      and read just after; each held against reference_mha there, at the
      JAX tests' shapes and block_q values, at the AST shapes in bf16 and
-     f32, and on a poisoned tail (keys past S must not be read); the two
+     f32, and on a poisoned tail (keys past S must not be read); mha (the
+     persistent walk of mha_packed on the same memory) and the two
      pipelined kernels (mha_batched_heads, mha_fused) also at B=1 (fewer
      work items than SMs), B=3, NH 1, 3 (an odd last pair) and 28 (past the
      width a staged output tile would allow), D=32 bf16 and bf16 poisoned
-     tails; then
-     timed like mha_packed, the pipelined two in f32 too;
+     tails; mha's output bitwise mha_packed's on the same memory in every
+     case; then timed like mha_packed, the persistent three in f32 and at
+     B=1 too, mha beside mha_packed;
   3c. mha_pairs: its own path, (128, 1214, 768) and (128, 146, 768) bf16
      with 12 heads, counts zeroed just before and read just after (2
      mha_pairs launches, no other); held against mha_packed_reference at
      the JAX tests' shapes and block_q values, the AST shapes in bf16 and
-     f32 and a poisoned tail; 3 heads (odd) must go to mha_packed; timed
-     like mha_packed;
+     f32, the walk's hard cases (B=1, B=3, NH 2 and 28, D=32 bf16) and
+     poisoned tails, and bitwise against mha_packed on every even-headed
+     case; 3 heads (odd) must go to mha_packed; timed beside mha_packed in
+     bf16, f32 and at B=1;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counter zeroed just before and read just after; the window
@@ -160,16 +164,20 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
 KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
-# the kernels of the cp.async ring and wgmma body: the persistent walk of
-# mha_packed, its lse forward and mha_batched_heads, and mha_fused
-PIPELINED = ("mha_packed", "mha_packed_lse", "mha_batched_heads",
-             "mha_fused")
-PIPELINED_ENTRIES = ("mha_batched_heads", "mha_fused")  # of ENTRY_POINTS
+# the kernels of the persistent walks and of the cp.async ring and wgmma
+# body: mha_packed, its lse forward, mha and mha_pairs (one function on one
+# memory), mha_batched_heads, and mha_fused
+PIPELINED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
+             "mha_batched_heads", "mha_fused")
+# of ENTRY_POINTS: the ones checked on the walk's hard cases and timed in
+# f32 and at B=1
+PIPELINED_ENTRIES = ("mha", "mha_batched_heads", "mha_fused")
 PIPELINED_SOURCE = ("zenker_audio_detection_tpu_torch/csrc/"
                     "attention_pipelined.cu")
-# the bf16 mha_packed and mha_packed_lse: the warp-specialised walk (their
-# f32 forms run PIPELINED_SOURCE)
+# the bf16 mha_packed, mha_packed_lse, mha and mha_pairs: the
+# warp-specialised walk (their f32 forms run PIPELINED_SOURCE)
 WS_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_ws.cu"
+WS_KINDS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
 # their own cases against reference_mha (mha_packed: packed, num_heads=NH),
 # (B, S, NH, D) and dtypes: B=1 has fewer work items than SMs, B=3 a count
 # that is no multiple of the grid, NH=3 leaves mha_fused's last pair one
@@ -241,6 +249,34 @@ def require_close(what: str, out, ref, dtype) -> float:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"{err} > {tol}")
     return err
+
+
+def require_equal(what: str, out, want) -> None:
+    """out must be want bit for bit: one kernel instance on one memory."""
+    import torch
+
+    if not (out.shape == want.shape and torch.equal(out, want)):
+        raise AssertionError(f"{what} is not bit for bit what it must be")
+    log(f"[kernel] {what}: bitwise equal")
+
+
+def packed_view(x):
+    """(B, S, NH, D) tensors as the packed (B, S, NH * D) of their memory."""
+    return [t.view(*t.shape[:2], -1) for t in x]
+
+
+def mha_as_packed(A, x):
+    """mha_packed on the memory of (B, S, NH, D) tensors x, viewed back:
+    what mha must give bit for bit."""
+    return A.mha_packed(*packed_view(x), num_heads=x[0].shape[2]).view(
+        x[0].shape)
+
+
+def source_of(name: str) -> str:
+    """The csrc/ source of `name`'s bf16 kernel."""
+    if name in WS_KINDS:
+        return WS_SOURCE
+    return PIPELINED_SOURCE if name in PIPELINED else KERNEL_SOURCE
 
 
 def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
@@ -389,6 +425,9 @@ def phase_entry_points(A, torch) -> list:
                                 outs[name][i], ref, torch.bfloat16)
             errs[name] = max(errs.get(name, 0.0), err)
         del ref
+        require_equal(f"mha {tuple(x[0].shape)} bf16 (path) vs mha_packed "
+                      f"on the same memory", outs["mha"][i],
+                      mha_as_packed(A, x))
     del outs, short
 
     # ---- against the plain version; these launches do not count ----
@@ -408,6 +447,9 @@ def phase_entry_points(A, torch) -> list:
             torch.cuda.synchronize()
             require_close(f"{name} {shape} {dtype} block_q={bq}", out, ref,
                           dtype)
+            if name == "mha":
+                require_equal(f"mha {shape} {dtype} vs mha_packed", out,
+                              mha_as_packed(A, x))
 
     for shape, dt in PIPELINED_CASES:
         dtype = getattr(torch, dt)
@@ -419,6 +461,9 @@ def phase_entry_points(A, torch) -> list:
             err = require_close(f"{name} {shape} {dtype}", out, ref, dtype)
             if dtype == torch.bfloat16:
                 errs[name] = max(errs[name], err)
+            if name == "mha":
+                require_equal(f"mha {shape} {dtype} vs mha_packed", out,
+                              mha_as_packed(A, x))
         del x, ref
 
     # the poisoned tail: keys and values past S hold 1e4; a kernel that
@@ -438,6 +483,10 @@ def phase_entry_points(A, torch) -> list:
             torch.cuda.synchronize()
             require_close(f"{name} poisoned tail (1, 65, {shape[2]}, "
                           f"{shape[3]}) {dtype}", out, ref, dtype)
+            if name == "mha":
+                require_equal(f"mha poisoned tail (1, 65, {shape[2]}, "
+                              f"{shape[3]}) {dtype} vs mha_packed", out,
+                              mha_as_packed(A, views))
 
     # ---- times at the AST width, bf16 ----
     B, S, NH, D = ENTRY_SHAPES[0]
@@ -447,6 +496,12 @@ def phase_entry_points(A, torch) -> list:
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
     b = bound(B, S, NH, D, q.element_size())
+
+    def packed_ms(x):
+        """mha_packed on the memory of (B, S, NH, D) tensors x: the kernel
+        mha launches, timed in this phase beside it."""
+        return median_ms(lambda: A.mha_packed(*packed_view(x), num_heads=NH))
+
     records = []
     for name, fn in fns.items():
         ms = median_ms(lambda: fn(q, k, v))
@@ -455,12 +510,15 @@ def phase_entry_points(A, torch) -> list:
             f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['text']})")
         records.append({
-            "name": name, "route": "cuda",
-            "source": PIPELINED_SOURCE if name in PIPELINED else KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": source_of(name),
             "replaces": ENTRY_POINTS[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": library_ms})
+    mha = next(r for r in records if r["name"] == "mha")
+    mha.update(f32_source=PIPELINED_SOURCE, packed_ms=packed_ms(full))
+    log(f"[entry] timing mha_packed on mha's memory {(B, S, NH * D)} bf16: "
+        f"{mha['packed_ms']:.4f} ms (mha {mha['ms']:.4f} ms)")
     del full, q, k, v, heads
     x32 = qkv(ENTRY_SHAPES[0], torch.float32)
     b32 = bound(B, S, NH, D, 4)
@@ -471,9 +529,12 @@ def phase_entry_points(A, torch) -> list:
             log(f"[entry] timing {r['name']} at {(B, S, NH, D)} f32: kernel "
                 f"{r['f32_ms']:.4f} ms; bound {b32['bound_ms']:.4f} ms "
                 f"({b32['text']})")
+    mha["f32_packed_ms"] = packed_ms(x32)
+    log(f"[entry] timing mha_packed on mha's memory {(B, S, NH * D)} f32: "
+        f"{mha['f32_packed_ms']:.4f} ms (mha {mha['f32_ms']:.4f} ms)")
     del x32
-    # one batch element: 120 work items of mha_batched_heads on 132 SMs,
-    # 19 CTAs of mha_fused (all heads of one query block each)
+    # one batch element: 120 work items of mha_batched_heads on 132 SMs, 84
+    # of mha's walk, 19 CTAs of mha_fused (all heads of one query block)
     x1 = qkv((1, S, NH, D), torch.bfloat16)
     b1 = bound(1, S, NH, D, 2)
     for r in records:
@@ -481,6 +542,9 @@ def phase_entry_points(A, torch) -> list:
             r["b1_ms"] = median_ms(lambda: fns[r["name"]](*x1))
             log(f"[entry] timing {r['name']} at {(1, S, NH, D)} bf16: kernel "
                 f"{r['b1_ms']:.4f} ms; bound {b1['bound_ms']:.4f} ms")
+    mha["b1_packed_ms"] = packed_ms(x1)
+    log(f"[entry] timing mha_packed on mha's memory {(1, S, NH * D)} bf16: "
+        f"{mha['b1_packed_ms']:.4f} ms (mha {mha['b1_ms']:.4f} ms)")
     return records
 
 
@@ -514,23 +578,37 @@ def phase_pairs(A, torch) -> dict:
             f"mha_pairs {tuple(x[0].shape)} bf16 (path)", out, ref,
             torch.bfloat16))
         del ref
+        require_equal(f"mha_pairs {tuple(x[0].shape)} bf16 (path) vs "
+                      f"mha_packed", out, A.mha_packed(*x, num_heads=nh))
     del outs, short
 
-    # ---- against the plain version; these launches do not count ----
+    # ---- against the plain version and bitwise against mha_packed (the
+    # same instance on the same memory); these launches do not count ----
     cases = [((2, 64, 128), 4, torch.float32, 64),     # D=32, the JAX tests
              ((2, 300, 128), 4, torch.float32, 128),
-             ((2, 300, 128), 4, torch.bfloat16, 128)]
+             ((2, 300, 128), 4, torch.bfloat16, 128),  # D=32 bf16
+             # the walk's hard cases: B=1 (fewer work items than SMs), B=3
+             # (a count that is no multiple of the grid), NH 2 and 28
+             ((1, 1214, 768), nh, torch.bfloat16, 256),
+             ((1, 1214, 768), nh, torch.float32, 256),
+             ((3, 1214, 768), nh, torch.bfloat16, 256),
+             ((2, 300, 128), 2, torch.bfloat16, 256),
+             ((2, 300, 128), 2, torch.float32, 256),
+             ((1, 300, 28 * 64), 28, torch.bfloat16, 256),
+             ((1, 300, 28 * 64), 28, torch.float32, 256)]
     cases += [((4, S, 768), nh, dtype, 256) for S in (1214, 146)
               for dtype in (torch.bfloat16, torch.float32)]
     for shape, heads, dtype, bq in cases:
         x = qkv(shape, dtype)
         out = A.mha_pairs(*x, num_heads=heads, block_q=bq)
         torch.cuda.synchronize()
-        require_close(f"mha_pairs {shape} nh={heads} {dtype} block_q={bq}",
-                      out, A.mha_packed_reference(*x, heads), dtype)
+        what = f"mha_pairs {shape} nh={heads} {dtype} block_q={bq}"
+        require_close(what, out, A.mha_packed_reference(*x, heads), dtype)
+        require_equal(f"{what} vs mha_packed", out,
+                      A.mha_packed(*x, num_heads=heads))
     # the poisoned tail at both head widths: keys and values past S hold 1e4
     for H, heads, dtype in ((128, 4, torch.float32), (128, 2, torch.bfloat16),
-                            (256, 4, torch.float32)):
+                            (256, 4, torch.float32), (256, 4, torch.bfloat16)):
         bufs = qkv((1, 128, H), dtype)
         for b in bufs:
             b[:, 65:] = 1e4
@@ -538,8 +616,10 @@ def phase_pairs(A, torch) -> dict:
         ref = A.mha_packed_reference(*(v.clone() for v in views), heads)
         out = A.mha_pairs(*views, num_heads=heads)
         torch.cuda.synchronize()
-        require_close(f"mha_pairs poisoned tail (1, 65, {H}) nh={heads} "
-                      f"{dtype}", out, ref, dtype)
+        what = f"mha_pairs poisoned tail (1, 65, {H}) nh={heads} {dtype}"
+        require_close(what, out, ref, dtype)
+        require_equal(f"{what} vs mha_packed", out,
+                      A.mha_packed(*views, num_heads=heads))
     # an odd head count is mha_packed, as the JAX function is
     x = qkv((2, 300, 96), torch.float32)
     before = counts(A)
@@ -568,16 +648,38 @@ def phase_pairs(A, torch) -> dict:
         f"(mha_packed {packed_ms:.4f} ms in the same phase), plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
         f"ms; bound {b['bound_ms']:.4f} ms ({b['text']})")
+    del full, q, k, v, heads
+    # the f32 AST shape: checked, then timed
     x32 = qkv((B, S, H), torch.float32)
+    out = A.mha_pairs(*x32, num_heads=nh)
+    torch.cuda.synchronize()
+    require_close(f"mha_pairs {(B, S, H)} nh={nh} f32", out,
+                  A.mha_packed_reference(*x32, nh), torch.float32)
+    require_equal(f"mha_pairs {(B, S, H)} nh={nh} f32 vs mha_packed", out,
+                  A.mha_packed(*x32, num_heads=nh))
+    del out
     ms_f32 = median_ms(lambda: A.mha_pairs(*x32, num_heads=nh))
-    log(f"[pairs] timing at {(B, S, H)} f32: mha_pairs {ms_f32:.4f} ms; "
-        f"bound {bound(B, S, nh, D, 4)['bound_ms']:.4f} ms")
+    packed_f32_ms = median_ms(lambda: A.mha_packed(*x32, num_heads=nh))
+    b32 = bound(B, S, nh, D, 4)
+    log(f"[pairs] timing at {(B, S, H)} f32: mha_pairs {ms_f32:.4f} ms "
+        f"(mha_packed {packed_f32_ms:.4f} ms in the same phase); bound "
+        f"{b32['bound_ms']:.4f} ms")
     del x32
-    return {"name": "mha_pairs", "route": "cuda", "source": KERNEL_SOURCE,
+    x1 = qkv((1, S, H), torch.bfloat16)
+    b1_ms = median_ms(lambda: A.mha_pairs(*x1, num_heads=nh))
+    b1_packed_ms = median_ms(lambda: A.mha_packed(*x1, num_heads=nh))
+    log(f"[pairs] timing at {(1, S, H)} bf16: mha_pairs {b1_ms:.4f} ms "
+        f"(mha_packed {b1_packed_ms:.4f} ms in the same phase); bound "
+        f"{bound(1, S, nh, D, 2)['bound_ms']:.4f} ms")
+    return {"name": "mha_pairs", "route": "cuda", "source": WS_SOURCE,
             "replaces": "zenker_audio_detection_tpu/ops/attention.py:386",
             "launches": launches["mha_pairs"], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": library_ms}
+            "bound_by": b["bound_by"], "library_ms": library_ms,
+            "f32_source": PIPELINED_SOURCE, "packed_ms": packed_ms,
+            "f32_ms": ms_f32, "f32_packed_ms": packed_f32_ms,
+            "f32_bound_ms": b32["bound_ms"], "b1_ms": b1_ms,
+            "b1_packed_ms": b1_packed_ms}
 
 
 def seeded_audio(seconds: float, seed: int) -> np.ndarray:
@@ -1278,7 +1380,7 @@ def check_occupancy(A) -> dict:
     for name in PIPELINED:
         for itemsize, dtype in ((2, "bf16"), (4, "f32")):
             for D in A.KERNEL_HEAD_DIMS:
-                geo = A.launch_geometry(name, 1, 64, 1, D, itemsize)
+                geo = A.launch_geometry(name, 1, 64, 2, D, itemsize)
                 ctas = A.pipelined_occupancy(name, itemsize, D)
                 found.setdefault(name, {}).setdefault(dtype, {})[D] = ctas
                 log(f"[build] {name} {dtype} D={D}: {ctas} CTAs per SM "

@@ -8,6 +8,8 @@ and at these input scales the outputs are O(1).
 
 Also what the wrapper and the kernel build refuse, checked without a card."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -130,11 +132,13 @@ def test_mha_packed_refuses_other_devices():
 
 
 @pytest.mark.parametrize("kind", ["mha_packed", "mha_packed_lse",
-                                  "mha_batched_heads"])
+                                  "mha_batched_heads", "mha", "mha_pairs"])
 def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
     """The persistent grid is sized by the card's SM count, read from the
     device properties once per device and not on every call (checked with
-    the properties and the C call stood in for)."""
+    the properties and the C call stood in for). `mha` and `mha_pairs`
+    call `mha_packed`'s kernel through entry points of their own in
+    csrc/attention_ws.cu, with the walk's int arguments."""
     reads, calls = [], []
 
     class Props:
@@ -152,8 +156,10 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
         B, S, NH, D = 3, 300, 4, 32
         q = torch.zeros(B, S, NH * D, dtype=torch.bfloat16)
         lse = torch.zeros(B, NH, S) if kind == "mha_packed_lse" else None
+        # mha's (B, S, NH, D) tensors, the others' packed (B, S, H)
+        x = q.view(B, S, NH, D) if kind == "mha" else q
         for _ in range(3):
-            A._launch(kind, q, q, q, B, S, NH, D, lse=lse)
+            A._launch(kind, x, x, x, B, S, NH, D, lse=lse)
     finally:
         A.sm_count.cache_clear()
     assert reads == [q.device]
@@ -164,3 +170,78 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
         "attention_ws"
     assert calls == [(source, f"{kind}_bf16", 4 if lse is None else 5,
                       (B, S, NH, D, *geo.grid, geo.threads, geo.smem))] * 3
+
+
+# `extern "C" int <name>(` written out, and the macros whose body defines
+# `extern "C" int <their first parameter>(`, with their uses
+_EXTERN = re.compile(r'extern "C" int (\w+)\(')
+_DEFINE = re.compile(r"^#define (\w+)\((\w+)[^)]*\)((?:.*\\\n)*.*)$",
+                     re.MULTILINE)
+
+
+def _exported(text: str) -> set:
+    """The C names a source exports: each `extern "C" int <name>(` outside
+    a macro, and the first argument of each use of a macro that defines
+    `extern "C" int <its first parameter>(`."""
+    macros = {name for name, first, body in _DEFINE.findall(text)
+              if f'extern "C" int {first}(' in body}
+    rest = _DEFINE.sub("", text)
+    names = set(_EXTERN.findall(rest))
+    for macro in macros:
+        names |= set(re.findall(rf"^{macro}\((\w+)", rest, re.MULTILINE))
+    return names
+
+
+def test_exported_reads_functions_and_macro_uses():
+    text = ('#define E(name, T)                  \\\n'
+            '  extern "C" int name(int x) {     \\\n'
+            '    return 0;                      \\\n'
+            '  }\n'
+            '#define ARGS(x) x, x\n'
+            'E(a_bf16, float)\n'
+            'E(a_f32, float)\n'
+            'extern "C" int b_bf16(int D) { return D; }\n')
+    assert _exported(text) == {"a_bf16", "a_f32", "b_bf16"}
+
+
+@pytest.mark.parametrize("source", sorted(_cuda._ENTRY_POINTS))
+def test_every_c_entry_point_is_bound(source):
+    """The names csrc/<source>.cu exports are the ones ops/_cuda.py binds:
+    a C name without a binding, or a binding without a C name, fails here
+    and not first on the card."""
+    text = (_cuda.CSRC / f"{source}.cu").read_text()
+    assert _exported(text) == set(_cuda._ENTRY_POINTS[source])
+
+
+# every kind `_launch` takes, and the backward kernels' own names
+_LAUNCHED = (*A._PIPELINED, "mha_qblock")
+
+
+@pytest.mark.parametrize("itemsize,suffix", [(2, "bf16"), (4, "f32")])
+@pytest.mark.parametrize("kind", _LAUNCHED)
+def test_every_wrapper_calls_a_bound_entry_point(kind, itemsize, suffix):
+    """What a wrapper calls, f"{kind}_{dtype}" (and for the persistent and
+    pipelined kinds their occupancy twin), is exported by and bound for the
+    source `_source` names."""
+    source = A._source(kind, itemsize)
+    names = [f"{kind}_{suffix}"]
+    if kind in A._PIPELINED:
+        names.append(f"{kind}_occupancy_{suffix}")
+    exported = _exported((_cuda.CSRC / f"{source}.cu").read_text())
+    for name in names:
+        assert name in exported and name in _cuda._ENTRY_POINTS[source]
+
+
+def test_every_bound_entry_point_is_called():
+    """Each bound C name is one a wrapper calls: no entry point is left
+    behind by a kind that moved to another source."""
+    called = {(A._source(kind, itemsize), f"{kind}{part}_{suffix}")
+              for kind in _LAUNCHED for itemsize, suffix in ((2, "bf16"),
+                                                             (4, "f32"))
+              for part in ("", "_occupancy")
+              if part == "" or kind in A._PIPELINED}
+    called |= {("attention_bwd", f"mha_packed_bwd_{part}_{suffix}")
+               for part in ("dq", "dkdv") for suffix in ("bf16", "f32")}
+    bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
+             for name in names}
+    assert bound == called

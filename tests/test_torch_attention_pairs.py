@@ -8,8 +8,9 @@ round p and the O(1) outputs to bf16, 2^-8 relative). `mha_packed_trainable`
 as tests/test_pallas_vjp.py holds the JAX one: loss within 1e-3, gradients
 atol 2e-4, rtol 1e-3.
 
-Also the launch geometry of `mha_pairs` and what its wrapper refuses,
-checked without a card."""
+Also the launch geometry of `mha_pairs` (and `mha`: both are `mha_packed`'s
+walk on the same memory) and what its wrapper refuses, checked without a
+card."""
 
 import numpy as np
 import pytest
@@ -86,34 +87,46 @@ def test_mha_pairs_odd_heads_call_mha_packed(monkeypatch, NH, calls):
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("kind", ["mha_pairs", "mha"])
+def test_pairs_and_mha_take_the_packed_geometry(kind, itemsize, D, sms):
+    """`mha_pairs` and `mha` launch `mha_packed`'s kernel on the same memory,
+    so their launch is `mha_packed`'s for every (B, S, NH, D), dtype and SM
+    count: the persistent walk (bf16 csrc/attention_ws.cu, f32
+    csrc/attention_pipelined.cu), no head-pair or per-head grid."""
+    for B, S, NH in ((128, 1214, 12), (1, 146, 2), (3, 300, 28)):
+        geo = A.launch_geometry(kind, B, S, NH, D, itemsize, sms=sms)
+        assert geo == A.launch_geometry("mha_packed", B, S, NH, D, itemsize,
+                                        sms=sms)
+        assert geo.grid[1:] == (1, 1) and geo.grid[0] <= sms * geo.ctas_per_sm
+    assert A._source(kind, itemsize) == A._source("mha_packed", itemsize)
+
+
 @pytest.mark.parametrize("S", [64, 300, 146, 1214])
 def test_pairs_geometry_covers_every_query_row(S):
+    """Every (batch, head, row block) item of the walk is taken once, by CTA
+    x = i mod gridDim.x, and the blocks cover every query row of every
+    head."""
     B, NH, D = 3, 12, 64
-    geo = A.launch_geometry("mha_pairs", B, S, NH, D, 2)
-    assert geo.grid[1:] == (NH // 2, B)
-    assert geo.rows == 64 and geo.threads == 4 * geo.rows  # 2 heads x 2
-    starts = [x * geo.rows for x in range(geo.grid[0])]
-    covered = set()
-    for s0 in starts:
-        covered.update(range(s0, min(s0 + geo.rows, S)))
-    assert covered == set(range(S)) and max(starts) < S
-
-
-@pytest.mark.parametrize("D,itemsize,smem", [(64, 2, 35_840), (64, 4, 65_536),
-                                             (32, 2, 18_432), (32, 4, 32_768)])
-def test_pairs_stage_both_heads_tiles(D, itemsize, smem):
-    """The pair's K/V tiles (csrc/attention.cu:Tiles<T, D, 2>) are the
-    block's dynamic shared memory: bf16 K (64, 2D + 8) and transposed V
-    (2D, 72), f32 K and V (64, 2D). The f32 D=64 pair is over the 48 KB a
-    static array may take."""
-    geo = A.launch_geometry("mha_pairs", 128, 1214, 12, D, itemsize)
-    assert geo.smem == smem == A._static_smem(D, itemsize, heads=2)
-    assert geo.smem <= A.MAX_SHARED_BYTES
+    geo = A.launch_geometry("mha_pairs", B, S, NH, D, 2, sms=7)
+    nqb = A.cdiv(S, geo.rows)
+    items = [(i // (NH * nqb), i // nqb % NH, i % nqb * geo.rows)
+             for x in range(geo.grid[0])
+             for i in range(x, B * NH * nqb, geo.grid[0])]
+    assert len(items) == len(set(items)) == B * NH * nqb
+    rows = {(b, h, r) for b, h, q0 in items
+            for r in range(q0, min(q0 + geo.rows, S))}
+    assert rows == {(b, h, r) for b in range(B) for h in range(NH)
+                    for r in range(S)}
+    assert max(q0 for _, _, q0 in items) < S
 
 
 @pytest.mark.parametrize("args,match", [
-    ((70000, 64, 2, 32, 2), "grid"),      # B > 65535
+    ((2**25, 1214, 16, 32, 2), "32-bit"),  # past a 32-bit item count
     ((1, 64, 3, 32, 2), "even"),          # odd heads go to mha_packed
+    ((1, 64, 1, 64, 4), "even"),
 ])
 def test_pairs_geometry_refuses(args, match):
     with pytest.raises(ValueError, match=match):

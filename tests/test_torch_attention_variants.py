@@ -21,12 +21,12 @@ from zenker_audio_detection_tpu_torch.ops import attention as A
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ENTRIES = ("mha", "mha_batched_heads", "mha_qblock", "mha_fused")
 BLOCKED = ("mha_qblock", "mha_fused")
-# the kernels of the persistent walk (csrc/attention_pipelined.cu, and for
-# the bf16 packed kinds csrc/attention_ws.cu), and with mha_fused every
-# kernel of those sources
-PERSISTENT = ("mha_batched_heads", "mha_packed", "mha_packed_lse")
+# the kernels of the persistent walk (csrc/attention_pipelined.cu, and in
+# bf16 csrc/attention_ws.cu for mha_packed's function on the same memory),
+# and with mha_fused every kernel of those sources
+WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
+PERSISTENT = ("mha_batched_heads", *WS)
 PIPELINED = (*PERSISTENT, "mha_fused")
-WS = ("mha_packed", "mha_packed_lse")  # bf16: csrc/attention_ws.cu
 # (S, block_q) of tests/test_pallas_attention.py:74-80; (1280, 96) and
 # (200, 96) are where a floor-divided grid once skipped the last rows
 QBLOCK_CASES = [(64, 64), (300, 128), (100, 256), (1280, 96), (200, 96)]
@@ -80,7 +80,7 @@ def test_reference_mha_matches_jax(dtype, B, S, NH, D):
 
 def _walk(geo, B, S, NH):
     """(b, h, first query row) of every work item of the persistent walk
-    (`mha_batched_heads`, `mha_packed`, `mha_packed_lse`), CTA by CTA, as
+    (`mha_batched_heads` and the kinds of `WS`), CTA by CTA, as
     the kernels of csrc/attention_pipelined.cu and csrc/attention_ws.cu walk
     them: CTA x takes items i = x + j * gridDim.x, numbered batch-major,
     then head, then query block."""
@@ -92,11 +92,9 @@ def _walk(geo, B, S, NH):
 
 
 def _tile_starts(kind, geo, B, S, NH):
-    """The first query row of every tile the kernel computes, as
-    csrc/attention.cu:attn_kernel and csrc/attention_pipelined.cu walk
-    them."""
-    if kind == "mha":
-        return range(0, S, geo.rows)  # each block loops over its tiles
+    """The first query row of every tile the kernel computes, as the
+    persistent walks and the grids of csrc/attention.cu and
+    csrc/attention_pipelined.cu give them."""
     if kind in PERSISTENT:
         return sorted({s0 for cta in _walk(geo, B, S, NH)
                        for _, _, s0 in cta})
@@ -110,7 +108,8 @@ def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
     B, NH, D = 2, 4, 32
     geo = A.launch_geometry(kind, B, S, NH, D, itemsize, block_q=bq)
     # two threads per query row and head; bf16 mha_fused takes a head pair;
-    # the bf16 packed kinds add a producer warpgroup to their consumers
+    # the bf16 kinds of the warp-specialised walk add a producer warpgroup
+    # to their consumers
     pair = 2 if (kind, itemsize) == ("mha_fused", 2) else 1
     producer = 128 if (kind in WS and itemsize == 2) else 0
     assert geo.rows % 16 == 0
@@ -124,8 +123,7 @@ def test_launch_geometry_covers_every_query_row(kind, S, bq, itemsize):
     # the other grid axes: one block per (batch, head) or per batch element;
     # the persistent grid is capped at sms x ctas_per_sm
     heads = B if kind == "mha_fused" else B * NH
-    q_blocks = 1 if kind == "mha" else len(starts)
-    blocks = q_blocks * heads
+    blocks = len(starts) * heads
     if kind in PERSISTENT:
         blocks = min(blocks, A.H100_SMS * geo.ctas_per_sm)
     assert np.prod(geo.grid) == blocks
@@ -191,12 +189,13 @@ def test_pipelined_shared_memory_fits_its_ctas_per_sm(kind, itemsize, D):
 @pytest.mark.parametrize("sms", [1, 132])
 @pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("kind", ["mha_packed", "mha_packed_lse"])
+@pytest.mark.parametrize("kind", WS)
 def test_packed_kinds_take_the_persistent_walk(kind, itemsize, D, sms):
-    """mha_packed and its lse forward walk mha_batched_heads' items: in f32
-    with its geometry (grid, threads, rows, tiles, CTAs per SM), in bf16
-    with one CTA of a producer and the consumer warpgroups per SM
-    (csrc/attention_ws.cu); the same for every block_q."""
+    """mha_packed, its lse forward, mha and mha_pairs walk
+    mha_batched_heads' items: in f32 with its geometry (grid, threads,
+    rows, tiles, CTAs per SM), in bf16 with one CTA of a producer and the
+    consumer warpgroups per SM (csrc/attention_ws.cu); the same for every
+    block_q."""
     walk = A.launch_geometry("mha_batched_heads", 128, 1214, 12, D,
                              itemsize, sms=sms)
     for bq in (1, 256):

@@ -2,14 +2,19 @@
 // port's ops/attention.py that run it.
 //
 // Replaces two Pallas kernels of zenker_audio_detection_tpu/ops/attention.py
-// and, in f32, a third and the forward of its custom VJP (their bf16 form
-// is the warp-specialised walk of attention_ws.cu):
+// and, in f32, three more and the forward of its custom VJP (their bf16
+// form is the warp-specialised walk of attention_ws.cu):
 //   mha_packed, f32   <- _attn_kernel_packed (grid (B, q blocks) on packed
 //                        (B, S, H = NH * D) projections, heads by lane
 //                        slices). A contiguous packed tensor is the
 //                        (B, S, NH, D) memory mha_batched_heads walks, so
 //                        mha_packed launches batched_kernel_f32's instances
 //                        as they are: no kernel of its own.
+//   mha, mha_pairs,   <- _attn_kernel (grid (B * NH)) and _attn_kernel_pairs
+//   f32                  (two heads per program, even NH): the same function
+//                        on the same memory, so the same instances
+//                        (attention_ws.cu says why the TPU decompositions
+//                        are not carried over).
 //   mha_packed_lse,   <- the forward of mha_packed_trainable (the custom
 //   f32                  VJP, _attn_kernel_packed under autograd):
 //                        batched_kernel_f32<D, true>, the same walk and
@@ -316,7 +321,7 @@ batched_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     const int b = i / (NH * nqb), h = i / nqb % NH, qb = i % nqb;
     const size_t base = (size_t)b * S * H + (size_t)h * D;
-    tile<D, 8, 1, kLse>(q, k, v, base, S, H, qb * 128, scale_log2, sm, o,
+    tile<D, 8, kLse>(q, k, v, base, S, H, qb * 128, scale_log2, sm, o,
                         base, H, lse, ((size_t)b * NH + h) * S);
   }
 }
@@ -414,8 +419,8 @@ int occupancy(int D, int threads, int smem) {
 // launch_geometry; `stream` is a cudaStream_t. Returns the cudaError_t of
 // the launch (0 on success); an instance that does not exist, or threads or
 // shared memory other than it needs, is cudaErrorInvalidValue. The caller
-// validates shapes. f32 mha_packed is mha_batched_heads' kernel on the same
-// memory, so both entry points launch one instance.
+// validates shapes. f32 mha_packed, mha and mha_pairs are mha_batched_heads'
+// kernel on the same memory, so their entry points launch one instance.
 #define PIPE_ENTRY(name, T, F)                                               \
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
@@ -425,6 +430,8 @@ int occupancy(int D, int threads, int smem) {
   }
 
 PIPE_ENTRY(mha_packed_f32, float, kBatched)
+PIPE_ENTRY(mha_f32, float, kBatched)
+PIPE_ENTRY(mha_pairs_f32, float, kBatched)
 PIPE_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kBatched)
 PIPE_ENTRY(mha_batched_heads_f32, float, kBatched)
 PIPE_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
@@ -452,6 +459,8 @@ LSE_ENTRY(mha_packed_lse_f32, float)
 
 OCC_ENTRY(mha_packed_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_packed_lse_occupancy_f32, float, kBatched, true)
+OCC_ENTRY(mha_occupancy_f32, float, kBatched, false)
+OCC_ENTRY(mha_pairs_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_bf16, __nv_bfloat16, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_fused_occupancy_bf16, __nv_bfloat16, kFused, false)

@@ -1,14 +1,36 @@
-// A warp-specialised flash-attention walk for Hopper: the bf16 mha_packed
-// and mha_packed_lse of the port's ops/attention.py.
+// A warp-specialised flash-attention walk for Hopper: the bf16 mha_packed,
+// mha_packed_lse, mha and mha_pairs of the port's ops/attention.py.
 //
-// Replaces, in bf16, the Pallas kernel _attn_kernel_packed of
-// zenker_audio_detection_tpu/ops/attention.py (grid (B, q blocks) on packed
-// (B, S, H = NH * D) projections, heads by lane slices) and the forward of
-// its custom VJP mha_packed_trainable:
-//   mha_packed     <- ws_kernel<D, false>
-//   mha_packed_lse <- ws_kernel<D, true>: the same code, and each row's
-//                     log-sum-exp for the backward in attention_bwd.cu after
-//                     the output; its output is mha_packed's bit for bit.
+// Replaces, in bf16, three Pallas kernels of
+// zenker_audio_detection_tpu/ops/attention.py and the forward of its custom
+// VJP mha_packed_trainable:
+//   mha_packed     <- _attn_kernel_packed (:295, call :330; grid (B, q
+//                     blocks) on packed (B, S, H = NH * D) projections,
+//                     heads by lane slices): ws_kernel<D, false>
+//   mha_packed_lse <- the custom VJP's forward: ws_kernel<D, true>, the same
+//                     code, and each row's log-sum-exp for the backward in
+//                     attention_bwd.cu after the output; its output is
+//                     mha_packed's bit for bit.
+//   mha            <- _attn_kernel (:59, call :98; grid (B * NH) on
+//                     (B, S, NH, D)): ws_kernel<D, false>
+//   mha_pairs      <- _attn_kernel_pairs (:349, call :403; two heads per
+//                     program on packed tensors, even NH): ws_kernel<D, false>
+// All four compute one function on one memory: a contiguous (B, S, NH, D)
+// tensor is packed (B, S, NH * D). So mha and mha_pairs launch mha_packed's
+// instance as it is, and their outputs are its outputs bit for bit. The TPU
+// decompositions are not carried over. mha's one program per (batch, head)
+// holds a head's whole S in VMEM; here the walk's items are (batch, head,
+// 64 * kConsumers rows) and share K/V tiles through the ring and L2.
+// mha_pairs packs two heads block-diagonally into a (2S, 128) K/V to fill
+// the 128-wide MXU; on Hopper the two heads' products cannot share a wgmma
+// (p differs per head) and the block-diagonal form doubles the products.
+// A head-pair item on this walk loses as well: with one 64-row consumer per
+// head the ring stages two heads' tiles for 64 rows each, three times the
+// fill per row of a 192-row single-head item; with two consumers per head
+// the CTA is 640 threads, a pool of 96 registers a thread, and after the
+// producer's 24 a consumer gets 112, which the D = 64 state (s 32, acc 32,
+// p 16, q 16, the next item's q 16) fills before any temporary, so it
+// spills.
 // Their f32 forms run attention_pipelined.cu's walk and FMA tile.
 // Contract: reference_mha's (ops/attention.py), as attention_pipelined.cu:
 // scores and softmax in f32 in the log2 domain, the unnormalised p rounded
@@ -511,14 +533,19 @@ int occupancy(int D, int threads, int smem) {
 // a cudaStream_t. Returns the cudaError_t of the launch (0 on success); an
 // instance that does not exist, a launch other than it needs or a tensor
 // map cuTensorMapEncodeTiled refuses is cudaErrorInvalidValue. The caller
-// validates shapes.
-extern "C" int mha_packed_bf16(const void* q, const void* k, const void* v,
-                               void* o, int B, int S, int NH, int D, int gx,
-                               int gy, int gz, int threads, int smem,
-                               void* stream) {
-  return launch<false>(q, k, v, o, nullptr, B, S, NH, D, gx, gy, gz, threads,
-                       smem, stream);
-}
+// validates shapes. mha_packed, mha and mha_pairs launch one instance on
+// the same memory.
+#define WS_ENTRY(name)                                                       \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      int B, int S, int NH, int D, int gx, int gy, int gz,  \
+                      int threads, int smem, void* stream) {                 \
+    return launch<false>(q, k, v, o, nullptr, B, S, NH, D, gx, gy, gz,      \
+                         threads, smem, stream);                             \
+  }
+
+WS_ENTRY(mha_packed_bf16)
+WS_ENTRY(mha_bf16)
+WS_ENTRY(mha_pairs_bf16)
 
 extern "C" int mha_packed_lse_bf16(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
@@ -532,10 +559,12 @@ extern "C" int mha_packed_lse_bf16(const void* q, const void* k,
 // The CTAs of an instance that fit on one SM at (threads, smem), as
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them; a negative
 // cudaError_t on failure.
-extern "C" int mha_packed_occupancy_bf16(int D, int threads, int smem) {
-  return occupancy<false>(D, threads, smem);
-}
+#define WS_OCCUPANCY(name, kLse)                      \
+  extern "C" int name(int D, int threads, int smem) { \
+    return occupancy<kLse>(D, threads, smem);         \
+  }
 
-extern "C" int mha_packed_lse_occupancy_bf16(int D, int threads, int smem) {
-  return occupancy<true>(D, threads, smem);
-}
+WS_OCCUPANCY(mha_packed_occupancy_bf16, false)
+WS_OCCUPANCY(mha_packed_lse_occupancy_bf16, true)
+WS_OCCUPANCY(mha_occupancy_bf16, false)
+WS_OCCUPANCY(mha_pairs_occupancy_bf16, false)

@@ -1,8 +1,7 @@
 // What the port's attention sources share: register and warp helpers, the
 // asynchronous copies, the K/V tiles of the synchronous flash body and that
-// body's f32 form. Included by attention.cu, attention_bwd.cu and
-// attention_pipelined.cu; each is its own library, so everything here is
-// internal to the file that includes it.
+// body's f32 form. Included by every attention source; each is its own
+// library, so everything here is internal to the file that includes it.
 
 #pragma once
 
@@ -97,56 +96,51 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The shared-memory K/V tiles of the synchronous body: P heads' P * D
-// contiguous lanes of 64 keys. bf16 rows are padded by 8 elements, which
-// keeps the fragment reads free of bank conflicts (a row is 4 banks apart
-// from the next at either width).
-template <typename T, int D, int P = 1>
+// The shared-memory K/V tiles of the synchronous body: one head's D lanes
+// of 64 keys. bf16 rows are padded by 8 elements, which keeps the fragment
+// reads free of bank conflicts (a row is 4 banks apart from the next at
+// either width).
+template <typename T, int D>
 struct Tiles;
 
-template <int D, int P>
-struct Tiles<__nv_bfloat16, D, P> {
-  static constexpr int kLdk = P * D + 8;  // k[key][d]
-  static constexpr int kLdv = kBK + 8;    // v[d][key], V transposed
+template <int D>
+struct Tiles<__nv_bfloat16, D> {
+  static constexpr int kLdk = D + 8;    // k[key][d]
+  static constexpr int kLdv = kBK + 8;  // v[d][key], V transposed
   __nv_bfloat16 k[kBK * kLdk];
-  __nv_bfloat16 v[P * D * kLdv];
+  __nv_bfloat16 v[D * kLdv];
 };
 
-template <int D, int P>
-struct Tiles<float, D, P> {
-  float k[kBK * P * D];  // k[key][d]
-  float v[kBK * P * D];  // v[key][d]
+template <int D>
+struct Tiles<float, D> {
+  float k[kBK * D];  // k[key][d]
+  float v[kBK * D];  // v[key][d]
 };
 
-// One tile of 16 * W / P query rows of P heads of one batch element, f32:
-// two threads per query row and head, each holding D/2 of the D lanes of q
-// and of the output; the partial dot products meet through one shuffle.
-// Keys are handled 16 at a time for the online softmax. Token 0, lane 0 of
-// the first head is at q + base (and k, v + base), rows ld elements apart;
-// the tile's first row is q0. With P heads the first 32 * W / P threads
-// take the first head, and so on. Row r of head hp's result goes to
-// out + obase + hp * D + r * ldo; rows past S are not stored. With kLse the
-// tile also stores each row's log-sum-exp, m + log2(l) in the log2 domain
-// with the scale folded in, at lse[lbase + row] (rows < S).
-template <int D, int W, int P = 1, bool kLse = false>
+// One tile of 16 * W query rows of one head of one batch element, f32: two
+// threads per query row, each holding D/2 of the D lanes of q and of the
+// output; the partial dot products meet through one shuffle. Keys are
+// handled 16 at a time for the online softmax. Token 0, lane 0 of the head
+// is at q + base (and k, v + base), rows ld elements apart; the tile's
+// first row is q0. Row r's result goes to out + obase + r * ldo; rows past
+// S are not stored. With kLse the tile also stores each row's log-sum-exp,
+// m + log2(l) in the log2 domain with the scale folded in, at
+// lse[lbase + row] (rows < S).
+template <int D, int W, bool kLse = false>
 __device__ __forceinline__ void tile(const float* __restrict__ q,
                                      const float* __restrict__ k,
                                      const float* __restrict__ v,
                                      size_t base, int S, int ld, int q0,
-                                     float scale_log2, Tiles<float, D, P>& sm,
+                                     float scale_log2, Tiles<float, D>& sm,
                                      float* __restrict__ out, ptrdiff_t obase,
                                      int ldo, float* __restrict__ lse = nullptr,
                                      size_t lbase = 0) {
-  constexpr int kThreads = 32 * W, kHalf = D / 2, kLd = P * D;
-  static_assert(W % P == 0, "each head takes W / P warps");
-  static_assert((kBK * P * D / 4) % kThreads == 0,
-                "staging must divide evenly");
+  constexpr int kThreads = 32 * W, kHalf = D / 2, kLd = D;
+  static_assert((kBK * D / 4) % kThreads == 0, "staging must divide evenly");
   const int tid = threadIdx.x;
-  const int hp = P == 1 ? 0 : tid / (kThreads / P);
-  const int ht = P == 1 ? tid : tid % (kThreads / P);
-  const int half = ht & 1;
-  const int row = q0 + (ht >> 1);
-  const int lane0 = hp * D + half * kHalf;  // this thread's first lane
+  const int half = tid & 1;
+  const int row = q0 + (tid >> 1);
+  const int lane0 = half * kHalf;  // this thread's first lane
   const size_t qo = base + (size_t)row * ld + lane0;
 
   float qr[kHalf], acc[kHalf];
@@ -165,7 +159,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < (kBK * P * D / 4) / kThreads; ++i) {
+    for (int i = 0; i < (kBK * D / 4) / kThreads; ++i) {
       const int c = tid + kThreads * i;
       const int key = c / (kLd / 4), d4 = (c % (kLd / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;

@@ -46,16 +46,16 @@ def _walks(names: list[str]) -> dict:
                for name in names}}
 
 
+# mha_packed's function on the same memory: the walks' own instances
+_SAME_AS_PACKED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
 _ENTRY_POINTS = {
-    "attention": {f"{fn}_{dtype}": (4, 8, True)
-                  for fn in ("mha_pairs", "mha", "mha_qblock")
-                  for dtype in _DTYPES},
+    "attention": {f"mha_qblock_{dtype}": (4, 8, True) for dtype in _DTYPES},
     "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8, True)
                       for part in ("dq", "dkdv") for dtype in _DTYPES},
     "attention_pipelined": _walks(
         [f"{fn}_{dtype}" for fn in ("mha_batched_heads", "mha_fused")
-         for dtype in _DTYPES] + ["mha_packed_f32", "mha_packed_lse_f32"]),
-    "attention_ws": _walks(["mha_packed_bf16", "mha_packed_lse_bf16"]),
+         for dtype in _DTYPES] + [f"{fn}_f32" for fn in _SAME_AS_PACKED]),
+    "attention_ws": _walks([f"{fn}_bf16" for fn in _SAME_AS_PACKED]),
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

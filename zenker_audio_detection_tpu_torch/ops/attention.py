@@ -18,12 +18,13 @@ log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
 probabilities tile by tile.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention.cu`, `csrc/attention_ws.cu` (bf16 `mha_packed` and
-`mha_packed_lse`: a persistent CTA per SM, a TMA producer warpgroup and two
-consumer warpgroups), `csrc/attention_pipelined.cu` (`mha_batched_heads`,
-`mha_fused` and the f32 `mha_packed` and `mha_packed_lse`: a cp.async ring
-and wgmma, under decompositions that fill the card) or
-`csrc/attention_bwd.cu`; on CPU tensors each runs
+`csrc/attention_ws.cu` (bf16 `mha_packed`, `mha_packed_lse`, `mha` and
+`mha_pairs`: a persistent CTA per SM, a TMA producer warpgroup and consumer
+warpgroups of 64 rows, `ws_tile`), `csrc/attention_pipelined.cu`
+(`mha_batched_heads`, `mha_fused` and the f32 forms of those four: a
+cp.async ring and wgmma, under decompositions that fill the card),
+`csrc/attention.cu` (`mha_qblock`) or `csrc/attention_bwd.cu`; on CPU
+tensors each runs
 the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
 `mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
 fallback from a kernel to the plain version on the card: a CUDA tensor the
@@ -64,18 +65,21 @@ MAX_SHARED_BYTES = 232_448
 _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
 _QBLOCK_MAX_ROWS = 128  # mha_qblock's 8-warp tile
-_PAIR_HEADS = 2  # heads of one mha_pairs block
+# the heads of one mha_fused CTA; mha_pairs takes whole pairs of heads
+_PAIR_HEADS = 2
+# csrc/attention_ws.cu: mha_packed's function on the same memory (a
+# contiguous (B, S, NH, D) tensor is packed (B, S, NH * D)) in bf16, the
+# persistent walk with one CTA per SM: a producer warpgroup and consumer
+# warpgroups of 64 rows, a ring of K and V tiles and its mbarriers
+# (`ws_tile`)
+_WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
 # csrc/attention_pipelined.cu: the persistent (batch, head, 128-row block)
-# walk of mha_batched_heads, which also takes packed (B, S, H) tensors for
-# the f32 mha_packed and its lse forward, and mha_fused's grid
-_PERSISTENT = ("mha_batched_heads", "mha_packed", "mha_packed_lse")
+# walk of mha_batched_heads, which also serves the f32 forms of _WS, and
+# mha_fused's grid
+_PERSISTENT = ("mha_batched_heads", *_WS)
 _PIPELINED = (*_PERSISTENT, "mha_fused")
 _RING_STAGES = 3  # bf16 K/V tiles in flight (kStages)
 _RING_ALIGN = 1024  # slack to align the ring for the 128-byte swizzle
-# csrc/attention_ws.cu: the bf16 mha_packed and mha_packed_lse, the same
-# walk with one CTA per SM: a producer warpgroup and consumer warpgroups of
-# 64 rows, a ring of K and V tiles and its mbarriers (`ws_tile`)
-_WS = ("mha_packed", "mha_packed_lse")
 _WS_TILE = re.compile(r"^constexpr int (kKeys|kConsumers|kStages) = (\d+);",
                       re.MULTILINE)
 H100_SMS = 132  # SMs of an H100 SXM, the default of launch_geometry's sms
@@ -156,22 +160,22 @@ def ws_tile() -> tuple[int, int, int]:
     return parse_ws_tile((_cuda.CSRC / "attention_ws.cu").read_text())
 
 
-def _static_smem(D: int, itemsize: int, heads: int = 1) -> int:
-    """The K/V tiles of `csrc/attention.cu:Tiles` for `heads` heads side by
-    side (their heads * D contiguous lanes), in bytes."""
-    lanes = heads * D
+def _static_smem(D: int, itemsize: int) -> int:
+    """The K/V tiles of `csrc/flash_common.cuh:Tiles` for one head, in
+    bytes."""
     if itemsize == 2:
-        return itemsize * (_TILE_KEYS * (lanes + 8) + lanes * (_TILE_KEYS + 8))
-    return itemsize * 2 * _TILE_KEYS * lanes
+        return itemsize * (_TILE_KEYS * (D + 8) + D * (_TILE_KEYS + 8))
+    return itemsize * 2 * _TILE_KEYS * D
 
 
 def _pipelined(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
                sms: int, tile: tuple[int, int, int] | None):
     """(grid, rows, threads, smem, ctas_per_sm) of the kernels of
     `csrc/attention_pipelined.cu` and `csrc/attention_ws.cu`. The
-    persistent walk: bf16 `mha_packed` and `mha_packed_lse` one CTA per SM
-    of a producer and 64-row consumer warpgroups (attention_ws.cu, of tile
-    shape `tile`, by default `ws_tile()`);
+    persistent walk: bf16 `mha_packed`, `mha_packed_lse`, `mha` and
+    `mha_pairs` one CTA per SM of a producer and 64-row consumer
+    warpgroups (attention_ws.cu, of tile shape `tile`, by default
+    `ws_tile()`);
     otherwise two warpgroups (256 threads) and a ring of `_RING_STAGES`
     stages of 64-key K and V tiles for one head, 2 CTAs per SM, or in f32
     the FMA tile's K/V tiles, 8 warps and 2 CTAs per SM. `mha_fused`: bf16
@@ -214,27 +218,18 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
                     tile: tuple[int, int, int] | None = None) -> Launch:
     """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
     card's SM count, which sizes the persistent grid of `mha_packed`,
-    `mha_packed_lse` and `mha_batched_heads`; `tile` is the shape of a
-    variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the source's own
-    by default. Query blocks are counted with `cdiv`, so the last, ragged
-    one is launched too."""
-    rows, smem, heads, ctas, threads = _TILE_ROWS, 0, 1, None, None
+    `mha_packed_lse`, `mha`, `mha_pairs` and `mha_batched_heads`; `tile` is
+    the shape of a variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the
+    source's own by default. Query blocks are counted with `cdiv`, so the
+    last, ragged one is launched too. `mha_pairs` takes an even NH: the JAX
+    function sends an odd one to `mha_packed`."""
+    if kind == "mha_pairs" and NH % _PAIR_HEADS:
+        raise ValueError(f"mha_pairs takes an even number of heads, got {NH}")
+    rows, smem, ctas, threads = _TILE_ROWS, 0, None, None
     if kind == "mha_packed_bwd_dq":
         grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
     elif kind == "mha_packed_bwd_dkdv":
         grid = (cdiv(S, rows), NH, B)  # 64-key tiles: rows are keys here
-    elif kind == "mha_pairs":
-        # one block per (q tile, head pair, batch element); its K/V tiles
-        # hold both heads' lanes and live in dynamic shared memory (the f32
-        # pair is 64 KB, over the 48 KB a static array may take)
-        if NH % _PAIR_HEADS:
-            raise ValueError(f"mha_pairs takes an even number of heads, "
-                             f"got {NH}")
-        heads = _PAIR_HEADS
-        grid = (cdiv(S, rows), NH // heads, B)
-        smem = _static_smem(D, itemsize, heads)
-    elif kind == "mha":
-        grid = (B * NH, 1, 1)
     elif kind == "mha_qblock":
         rows = qblock_rows(block_q)
         grid = (cdiv(S, rows), B * NH, 1)
@@ -247,7 +242,7 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
     if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} needs the "
                          f"grid {grid}, beyond CUDA's limits")
-    return Launch(grid, threads or 2 * rows * heads, rows, smem, ctas)
+    return Launch(grid, threads or 2 * rows, rows, smem, ctas)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
@@ -344,15 +339,15 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
-    """The CTAs of `kind`'s kernel (`mha_packed`, `mha_packed_lse`,
-    `mha_batched_heads` or `mha_fused`, of the dtype of `itemsize` bytes,
-    head width D) that fit on one SM of the current card at
-    `launch_geometry`'s threads and shared memory, as
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them. Builds the
-    kernels if needed; raises on a CUDA error."""
+    """The CTAs of `kind`'s kernel (a kind of `_PIPELINED`: `mha_packed`,
+    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_batched_heads` or
+    `mha_fused`, of the dtype of `itemsize` bytes, head width D) that fit
+    on one SM of the current card at `launch_geometry`'s threads and shared
+    memory, as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them.
+    Builds the kernels if needed; raises on a CUDA error."""
     if kind not in _PIPELINED:
         raise ValueError(f"no pipelined attention kernel named {kind!r}")
-    geo = launch_geometry(kind, 1, _TILE_KEYS, 1, D, itemsize)
+    geo = launch_geometry(kind, 1, _TILE_KEYS, _PAIR_HEADS, D, itemsize)
     suffix = "bf16" if itemsize == 2 else "f32"
     fn = getattr(_cuda.load(_source(kind, itemsize)),
                  f"{kind}_occupancy_{suffix}")
@@ -393,19 +388,22 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               num_heads: int, block_q: int = 256) -> torch.Tensor:
-    """The same function as `mha_packed`, one block per (64-row query tile,
-    head pair, batch element), the TPU kernel's two heads per program.
+    """The same function as `mha_packed`, whose TPU kernel takes two heads
+    per program (block-diagonal (2S, 128) K/V that fill its 128-wide
+    matrix unit).
 
-    The block stages each 64-key K/V tile once for both heads (the pair's
-    2 * D contiguous lanes) and runs one online softmax per head against
-    it: warps 0-3 take head 2p, warps 4-7 head 2p + 1. The TPU kernel's
-    block-diagonal zero padding, which fills its 128-wide matrix unit, is
-    not carried over: it would double the products here. With an odd
-    `num_heads` it is `mha_packed` with the same `block_q`, as the JAX
-    function is (that launch counts in `mha_packed.launches`). `block_q` >= 1
-    is accepted and does not change the output. CPU tensors run
-    `mha_packed_reference`. Each kernel launch adds one to
-    `mha_pairs.launches`."""
+    With an even `num_heads`, CUDA tensors launch `mha_packed`'s kernel on
+    the same memory, the persistent walk over (batch element, head, row
+    block) items (bf16 `csrc/attention_ws.cu`, f32
+    `csrc/attention_pipelined.cu`), so the output is `mha_packed`'s bit for
+    bit; the pair stays in the contract, not in the grid (the two heads'
+    products cannot share a tensor-core instruction, and a head-pair item
+    on the walk would stage three times the K/V per row or spill,
+    `csrc/attention_ws.cu`). The launch counts
+    in `mha_pairs.launches` alone. With an odd `num_heads` it is
+    `mha_packed` with the same `block_q`, as the JAX function is (that
+    launch counts in `mha_packed.launches`). `block_q` >= 1 is accepted and
+    does not change the output. CPU tensors run `mha_packed_reference`."""
     _check(q, k, v, "mha_pairs", 3)
     if block_q < 1:
         raise ValueError(f"block_q must be at least 1, got {block_q}")
@@ -701,10 +699,13 @@ def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Multi-head attention, (B, S, NH, D) -> (B, S, NH, D), bf16 or f32.
 
-    The kernel runs one block per (batch element, head), which walks all
-    cdiv(S, 64) query tiles of its head, as the TPU kernel runs one grid
-    step per (batch * head). CPU tensors run `reference_mha`. Each kernel
-    launch adds one to `mha.launches`."""
+    The TPU kernel runs one grid step per (batch * head), holding the
+    head's whole S on chip. A contiguous (B, S, NH, D) tensor is packed
+    (B, S, NH * D) memory, so CUDA tensors launch `mha_packed`'s kernel as
+    it is: the persistent walk over (batch element, head, row block) items
+    (bf16 `csrc/attention_ws.cu`, f32 `csrc/attention_pipelined.cu`), and
+    the output is `mha_packed`'s on that memory bit for bit. CPU tensors run
+    `reference_mha`. Each kernel launch adds one to `mha.launches`."""
     return _attend(mha, q, k, v)
 
 
