@@ -32,14 +32,15 @@ fails the run loudly:
      (128, 146, 12, 64) bf16 with the launch counters zeroed just before
      and read just after; each held against reference_mha there, at the
      JAX tests' shapes and block_q values, at the AST shapes in bf16 and
-     f32, and on a poisoned tail (keys past S must not be read); mha (the
-     persistent walk of mha_packed on the same memory) and the two
-     pipelined kernels (mha_batched_heads, mha_fused) also at B=1 (fewer
-     work items than SMs), B=3, NH 1, 3 (an odd last pair) and 28 (past the
-     width a staged output tile would allow), D=32 bf16 and bf16 poisoned
-     tails; mha's output bitwise mha_packed's on the same memory in every
-     case; then timed like mha_packed, the persistent three in f32 and at
-     B=1 too, mha beside mha_packed;
+     f32, and on a poisoned tail (keys past S must not be read); mha and
+     mha_qblock (the persistent walk of mha_packed on the same memory) and
+     the two pipelined kernels (mha_batched_heads, mha_fused) also at B=1
+     (fewer work items than SMs), B=3, NH 1, 3 (an odd last pair) and 28
+     (past the width a staged output tile would allow), D=32 bf16 and bf16
+     poisoned tails; mha's and mha_qblock's outputs bitwise mha_packed's on
+     the same memory in every case; then timed like mha_packed, all but
+     mha_fused in f32 and at B=1 too, mha and mha_qblock beside
+     mha_packed;
   3c. mha_pairs: its own path, (128, 1214, 768) and (128, 146, 768) bf16
      with 12 heads, counts zeroed just before and read just after (2
      mha_pairs launches, no other); held against mha_packed_reference at
@@ -75,7 +76,20 @@ fails the run loudly:
      runs) from the same weights; the loss must fall on the fixed batch in
      both, and the routes must agree in loss and first-step gradients; one
      f32 step of a small model on the card against the CPU (the
-     backward's TF32 trap); times per step.
+     backward's TF32 trap); times per step;
+  7. training loop: a fold of seeded one-second WAVs (32 per class in
+     train, 8 in val and test), compute_stats on the card for its mean and
+     std, then train.loop.run_cross_validation([1], cfg) on the card at
+     full width (init_model's random ASTConfig(), max_length 1024), batch
+     16, bf16, augmentation on, 2 epochs (8 steps), no early stopping,
+     with the counts zeroed just before and read just after (the loop's
+     steps run the "torch" attention, as the JAX trainer runs XLA's, so
+     no attention kernel launches); every loss finite, the artifact
+     contract of tests/test_train_loop.py, the best directory served by
+     TwoStageEngine on phase 4's audio; ms per step (median of steps 2-8),
+     featurization seconds and peak memory. Then a small f32 config on the
+     card: 2 epochs straight against 1 epoch and --resume for the second,
+     whose best parameters must be equal bit for bit.
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -163,21 +177,23 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 }
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
-KERNEL_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention.cu"
 # the kernels of the persistent walks and of the cp.async ring and wgmma
-# body: mha_packed, its lse forward, mha and mha_pairs (one function on one
-# memory), mha_batched_heads, and mha_fused
+# body: mha_packed, its lse forward, mha, mha_pairs and mha_qblock (one
+# function on one memory), mha_batched_heads, and mha_fused
 PIPELINED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
-             "mha_batched_heads", "mha_fused")
+             "mha_qblock", "mha_batched_heads", "mha_fused")
 # of ENTRY_POINTS: the ones checked on the walk's hard cases and timed in
 # f32 and at B=1
-PIPELINED_ENTRIES = ("mha", "mha_batched_heads", "mha_fused")
+PIPELINED_ENTRIES = ("mha", "mha_qblock", "mha_batched_heads", "mha_fused")
+# of ENTRY_POINTS: mha_packed's instances on the same memory, so their
+# outputs must be mha_packed's bit for bit
+SAME_AS_PACKED = ("mha", "mha_qblock")
 PIPELINED_SOURCE = ("zenker_audio_detection_tpu_torch/csrc/"
                     "attention_pipelined.cu")
-# the bf16 mha_packed, mha_packed_lse, mha and mha_pairs: the
+# the bf16 mha_packed, mha_packed_lse, mha, mha_pairs and mha_qblock: the
 # warp-specialised walk (their f32 forms run PIPELINED_SOURCE)
 WS_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_ws.cu"
-WS_KINDS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
+WS_KINDS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock")
 # their own cases against reference_mha (mha_packed: packed, num_heads=NH),
 # (B, S, NH, D) and dtypes: B=1 has fewer work items than SMs, B=3 a count
 # that is no multiple of the grid, NH=3 leaves mha_fused's last pair one
@@ -199,6 +215,13 @@ LSE_TOL = 1e-4
 # the poisoned tails of the backward: (B, S, H, heads); every buffer holds
 # NaN past the tensor's end
 POISON_CASES = ((1, 65, 64, 2), (2, 300, 128, 4))
+# the training loop's fold (phase 7): one-second clips per class in train,
+# and in val and test; 2 epochs of 4 steps at batch 16
+LOOP_TRAIN_PER_CLASS, LOOP_EVAL_PER_CLASS = 32, 8
+LOOP_EPOCHS, LOOP_BATCH = 2, 16
+# phase 7's small f32 config for the resume check
+LOOP_SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                  intermediate_size=128, max_length=128)
 
 
 def log(msg: str) -> None:
@@ -267,16 +290,14 @@ def packed_view(x):
 
 def mha_as_packed(A, x):
     """mha_packed on the memory of (B, S, NH, D) tensors x, viewed back:
-    what mha must give bit for bit."""
+    what mha and mha_qblock must give bit for bit."""
     return A.mha_packed(*packed_view(x), num_heads=x[0].shape[2]).view(
         x[0].shape)
 
 
 def source_of(name: str) -> str:
     """The csrc/ source of `name`'s bf16 kernel."""
-    if name in WS_KINDS:
-        return WS_SOURCE
-    return PIPELINED_SOURCE if name in PIPELINED else KERNEL_SOURCE
+    return WS_SOURCE if name in WS_KINDS else PIPELINED_SOURCE
 
 
 def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
@@ -425,9 +446,11 @@ def phase_entry_points(A, torch) -> list:
                                 outs[name][i], ref, torch.bfloat16)
             errs[name] = max(errs.get(name, 0.0), err)
         del ref
-        require_equal(f"mha {tuple(x[0].shape)} bf16 (path) vs mha_packed "
-                      f"on the same memory", outs["mha"][i],
-                      mha_as_packed(A, x))
+        want = mha_as_packed(A, x)
+        for name in SAME_AS_PACKED:
+            require_equal(f"{name} {tuple(x[0].shape)} bf16 (path) vs "
+                          f"mha_packed on the same memory", outs[name][i],
+                          want)
     del outs, short
 
     # ---- against the plain version; these launches do not count ----
@@ -447,9 +470,9 @@ def phase_entry_points(A, torch) -> list:
             torch.cuda.synchronize()
             require_close(f"{name} {shape} {dtype} block_q={bq}", out, ref,
                           dtype)
-            if name == "mha":
-                require_equal(f"mha {shape} {dtype} vs mha_packed", out,
-                              mha_as_packed(A, x))
+            if name in SAME_AS_PACKED:
+                require_equal(f"{name} {shape} {dtype} block_q={bq} vs "
+                              f"mha_packed", out, mha_as_packed(A, x))
 
     for shape, dt in PIPELINED_CASES:
         dtype = getattr(torch, dt)
@@ -461,8 +484,8 @@ def phase_entry_points(A, torch) -> list:
             err = require_close(f"{name} {shape} {dtype}", out, ref, dtype)
             if dtype == torch.bfloat16:
                 errs[name] = max(errs[name], err)
-            if name == "mha":
-                require_equal(f"mha {shape} {dtype} vs mha_packed", out,
+            if name in SAME_AS_PACKED:
+                require_equal(f"{name} {shape} {dtype} vs mha_packed", out,
                               mha_as_packed(A, x))
         del x, ref
 
@@ -483,8 +506,8 @@ def phase_entry_points(A, torch) -> list:
             torch.cuda.synchronize()
             require_close(f"{name} poisoned tail (1, 65, {shape[2]}, "
                           f"{shape[3]}) {dtype}", out, ref, dtype)
-            if name == "mha":
-                require_equal(f"mha poisoned tail (1, 65, {shape[2]}, "
+            if name in SAME_AS_PACKED:
+                require_equal(f"{name} poisoned tail (1, 65, {shape[2]}, "
                               f"{shape[3]}) {dtype} vs mha_packed", out,
                               mha_as_packed(A, views))
 
@@ -499,8 +522,18 @@ def phase_entry_points(A, torch) -> list:
 
     def packed_ms(x):
         """mha_packed on the memory of (B, S, NH, D) tensors x: the kernel
-        mha launches, timed in this phase beside it."""
+        mha and mha_qblock launch, timed in this phase beside them."""
         return median_ms(lambda: A.mha_packed(*packed_view(x), num_heads=NH))
+
+    def beside_packed(key: str, x, what: str) -> None:
+        """mha_packed's time on x into the SAME_AS_PACKED records."""
+        ms = packed_ms(x)
+        for r in records:
+            if r["name"] in SAME_AS_PACKED:
+                r[key] = ms
+                log(f"[entry] timing mha_packed on {r['name']}'s memory "
+                    f"{what}: {ms:.4f} ms ({r['name']} "
+                    f"{r[key.replace('packed_', '')]:.4f} ms)")
 
     records = []
     for name, fn in fns.items():
@@ -515,10 +548,10 @@ def phase_entry_points(A, torch) -> list:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": library_ms})
-    mha = next(r for r in records if r["name"] == "mha")
-    mha.update(f32_source=PIPELINED_SOURCE, packed_ms=packed_ms(full))
-    log(f"[entry] timing mha_packed on mha's memory {(B, S, NH * D)} bf16: "
-        f"{mha['packed_ms']:.4f} ms (mha {mha['ms']:.4f} ms)")
+    for r in records:
+        if r["name"] in SAME_AS_PACKED:
+            r["f32_source"] = PIPELINED_SOURCE
+    beside_packed("packed_ms", full, f"{(B, S, NH * D)} bf16")
     del full, q, k, v, heads
     x32 = qkv(ENTRY_SHAPES[0], torch.float32)
     b32 = bound(B, S, NH, D, 4)
@@ -529,12 +562,11 @@ def phase_entry_points(A, torch) -> list:
             log(f"[entry] timing {r['name']} at {(B, S, NH, D)} f32: kernel "
                 f"{r['f32_ms']:.4f} ms; bound {b32['bound_ms']:.4f} ms "
                 f"({b32['text']})")
-    mha["f32_packed_ms"] = packed_ms(x32)
-    log(f"[entry] timing mha_packed on mha's memory {(B, S, NH * D)} f32: "
-        f"{mha['f32_packed_ms']:.4f} ms (mha {mha['f32_ms']:.4f} ms)")
+    beside_packed("f32_packed_ms", x32, f"{(B, S, NH * D)} f32")
     del x32
     # one batch element: 120 work items of mha_batched_heads on 132 SMs, 84
-    # of mha's walk, 19 CTAs of mha_fused (all heads of one query block)
+    # of mha's and mha_qblock's walk, 19 CTAs of mha_fused (all heads of
+    # one query block)
     x1 = qkv((1, S, NH, D), torch.bfloat16)
     b1 = bound(1, S, NH, D, 2)
     for r in records:
@@ -542,9 +574,7 @@ def phase_entry_points(A, torch) -> list:
             r["b1_ms"] = median_ms(lambda: fns[r["name"]](*x1))
             log(f"[entry] timing {r['name']} at {(1, S, NH, D)} bf16: kernel "
                 f"{r['b1_ms']:.4f} ms; bound {b1['bound_ms']:.4f} ms")
-    mha["b1_packed_ms"] = packed_ms(x1)
-    log(f"[entry] timing mha_packed on mha's memory {(1, S, NH * D)} bf16: "
-        f"{mha['b1_packed_ms']:.4f} ms (mha {mha['b1_ms']:.4f} ms)")
+    beside_packed("b1_packed_ms", x1, f"{(1, S, NH * D)} bf16")
     return records
 
 
@@ -1393,6 +1423,206 @@ def check_occupancy(A) -> dict:
     return found
 
 
+def make_train_fold(root: str, seed: int = 0) -> str:
+    """A fold of seeded one-second WAVs in the trainers' data layout
+    (tests/test_train_loop.py:33-61): class 0 quiet noise, class 1 loud
+    noise; {train,val,test}_{x,y}_fold1.npy under <root>/data."""
+    from zenker_audio_detection_tpu_torch.audio import io as aio
+
+    rng = np.random.default_rng(seed)
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    for split, n in (("train", LOOP_TRAIN_PER_CLASS),
+                     ("val", LOOP_EVAL_PER_CLASS),
+                     ("test", LOOP_EVAL_PER_CLASS)):
+        xs, ys = [], []
+        for i in range(n):
+            for label in (0, 1):
+                d = os.path.join(root, "wav", split,
+                                 "Healthy" if label else "Idle",
+                                 f"P{label}{i:02d}")
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(d, f"c{i}.wav")
+                w = rng.standard_normal(16000) * (0.5 if label else 0.002)
+                aio.write_wav(path, w.astype(np.float32), 16000,
+                              dtype="float32")
+                xs.append(path)
+                ys.append(label)
+        np.save(os.path.join(data, f"{split}_x_fold1.npy"),
+                np.asarray(xs, dtype=object))
+        np.save(os.path.join(data, f"{split}_y_fold1.npy"), np.asarray(ys))
+    return data
+
+
+def check_fold_artifacts(root: str, num_epochs: int) -> None:
+    """The artifact contract of tests/test_train_loop.py:94-113."""
+    from zenker_audio_detection_tpu_torch.train import loop as L
+
+    fold_dir = os.path.join(root, "fold1")
+    best = os.path.join(fold_dir, "best")
+    need = [os.path.join(best, name) for name in (
+        "model.safetensors", "config.json", "preprocessor_config.json",
+        "evaluation_test/confusion_matrix.npy",
+        "evaluation_val/classification_report.txt")]
+    need += [os.path.join(fold_dir, "run_config.json"),
+             os.path.join(fold_dir, "history.json"),
+             os.path.join(root, "cv_metrics.npy"),
+             os.path.join(root, "cv_metrics.txt")]
+    missing = [p for p in need if not os.path.exists(p)]
+    _, std = L.load_feature_extractor_config(best)
+    cks = [n for n in os.listdir(fold_dir) if n.startswith("checkpoint-")]
+    if missing or not std > 0 or not 1 <= len(cks) <= max(
+            2, (num_epochs + 1) // 2):
+        raise AssertionError(f"fold artifacts: missing {missing}, std {std}, "
+                             f"checkpoints {cks}")
+
+
+def phase_train_loop(A, C, ast_mod, torch, smi: str) -> None:
+    """The training loop on the card: compute_stats, then
+    run_cross_validation at full width (the path, counts zeroed just before
+    and read just after), its artifacts, its best directory in the engine;
+    then bitwise resume at a small f32 config."""
+    import dataclasses
+
+    from zenker_audio_detection_tpu_torch.data import stats as S
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as L
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_train_fold(tmp)
+        t0 = time.perf_counter()
+        per_fold, _ = S.compute_all_stats(data, num_folds=1, device="cuda")
+        stats_s = time.perf_counter() - t0
+        cfg = L.TrainFoldConfig(
+            stage="stage1", data_dir=data,
+            output_root=os.path.join(tmp, "runs"), num_epochs=LOOP_EPOCHS,
+            batch_size=LOOP_BATCH,
+            dtype=torch.bfloat16, augment=True, enable_early_stopping=False,
+            device="cuda")
+        # observe the loop without changing it: each step's time (ending in
+        # the host read of its loss, as the loop does) and loss, and the
+        # seconds of each featurization call
+        step_ms, step_losses, feat_s = [], [], []
+        make_step, featurize = L.steps.make_train_step, L.featurize_paths
+
+        def timed_make(*args, **kw):
+            step = make_step(*args, **kw)
+
+            def timed(*step_args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*step_args)
+                step_losses.append(float(out[2]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+
+        def timed_featurize(*args, **kw):
+            t0 = time.perf_counter()
+            out = featurize(*args, **kw)
+            feat_s.append(time.perf_counter() - t0)
+            return out
+
+        L.steps.make_train_step = timed_make
+        L.featurize_paths = timed_featurize
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the loop's path: counts zeroed just before, read just after
+            zero_counts(A)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = L.run_cross_validation([1], cfg,
+                                            tracking_opts={"enabled": False})
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            launches = counts(A)
+            # -----------------------------------------------------------------
+        finally:
+            L.steps.make_train_step, L.featurize_paths = make_step, featurize
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(cfg.output_root, "fold1", "history.json")) as f:
+            history = json.load(f)
+        steps = LOOP_EPOCHS * -(-2 * LOOP_TRAIN_PER_CLASS // LOOP_BATCH)
+        log(f"[loop] launches on the training loop's path: {launches} (the "
+            f"steps run the torch attention, as the JAX trainer runs XLA's)")
+        log(f"[loop] step losses {[round(x, 6) for x in step_losses]}; epoch "
+            f"losses {[round(h['loss'], 6) for h in history]}; eval f1 "
+            f"{[h['f1'] for h in history]}; test "
+            f"{result['per_fold'][0]['fold1_test_eval_f1']:.4f} f1")
+        if any(launches.values()):
+            raise AssertionError(f"the loop launched attention kernels: "
+                                 f"{launches}")
+        if len(step_ms) != steps or not all(
+                math.isfinite(x) for x in step_losses
+                + [h["loss"] for h in history]):
+            raise AssertionError(f"{len(step_ms)} steps (want {steps}), "
+                                 f"losses {step_losses}")
+        check_fold_artifacts(cfg.output_root, cfg.num_epochs)
+        log(f"[loop] full width, batch {LOOP_BATCH}, bf16, augmentation on: "
+            f"{np.median(step_ms[1:]):.2f} ms/step (median of steps "
+            f"2-{steps}; each step: {[round(x, 2) for x in step_ms]}); "
+            f"featurization {sum(feat_s):.2f} s in {len(feat_s)} calls "
+            f"({[round(x, 2) for x in feat_s]}: train "
+            f"{2 * LOOP_TRAIN_PER_CLASS} clips augmented, val, test); "
+            f"compute_stats {stats_s:.2f} s (fold mean "
+            f"{per_fold[0]['mean']:.4f}, std {per_fold[0]['std']:.4f}); "
+            f"run_cross_validation {loop_s:.1f} s; peak memory {peak:.2f} GB; "
+            f"{smi}")
+
+        # the best directory serves phase 4's audio in the port's engine
+        best = os.path.join(cfg.output_root, "fold1", "best")
+        params, config = convert.load_hf_model_dir(best)
+        mean, std = L.load_feature_extractor_config(best)
+        engine = C.TwoStageEngine(
+            C.StageSpec(params, config, mean, std, ("Idle", "Swallow")),
+            C.StageSpec(params, config, mean, std, ("Healthy", "Zenker")),
+            C.CascadeConfig(batch_size=128, stage2_mode="all"), device="cuda")
+        audio = seeded_audio(60.0, seed=3)
+        W = len(C.window_starts(len(audio), 1.0, 0.5))
+        p1, p2 = engine.window_probs(audio)
+        check_probs(p1, W, "trained stage 1")
+        check_probs(p2, W, "trained stage 2")
+        log(f"[loop] fold1/best served by TwoStageEngine: {W} windows, "
+            f"stage-1 swallow share {float((p1[:, 1] > 0.5).mean()):.3f}")
+        del engine, params
+
+        # --resume at a small f32 config: bit for bit a straight run
+        small = ast_mod.ASTConfig(**LOOP_SMALL)
+        pretrained = os.path.join(tmp, "small")
+        convert.save_hf_model_dir(
+            ast_mod.init_params(np.random.default_rng(11), small), small,
+            pretrained)
+        base = L.TrainFoldConfig(
+            stage="stage1", data_dir=data, pretrained_model_dir=pretrained,
+            num_epochs=2, batch_size=LOOP_BATCH, learning_rate=1e-3,
+            dtype=torch.float32, augment=False, enable_early_stopping=False,
+            device="cuda")
+        roots = [os.path.join(tmp, name) for name in ("straight", "resumed")]
+        m_straight = L.train_fold(1, dataclasses.replace(
+            base, output_root=roots[0]))
+        L.train_fold(1, dataclasses.replace(
+            base, output_root=roots[1], on_epoch_end=lambda e, m: e >= 1))
+        m_resumed = L.train_fold(1, dataclasses.replace(
+            base, output_root=roots[1], resume=True))
+        bests = [convert.read_safetensors(os.path.join(
+            r, "fold1", "best", "model.safetensors")) for r in roots]
+        histories = []
+        for r in roots:
+            with open(os.path.join(r, "fold1", "history.json")) as f:
+                histories.append(json.load(f))
+        same = (sorted(bests[0]) == sorted(bests[1]) and all(
+            np.array_equal(bests[0][k], bests[1][k]) for k in bests[0]))
+        metrics_same = all(m_straight[k] == m_resumed[k] for k in m_straight
+                           if "runtime" not in k and "per_second" not in k)
+        log(f"[loop] small f32 config on the card, 2 epochs straight vs 1 + "
+            f"--resume 1: best parameters bitwise equal {same}, metrics "
+            f"equal {metrics_same}, histories equal "
+            f"{histories[0] == histories[1]} (losses "
+            f"{[h['loss'] for h in histories[0]]})")
+        if not (same and metrics_same and histories[0] == histories[1]):
+            raise AssertionError("--resume on the card is not a straight run")
+
+
 def main() -> int:
     import torch
 
@@ -1443,6 +1673,7 @@ def main() -> int:
         if r["name"] in PIPELINED:
             r["ctas_per_sm"] = occupancy[r["name"]]
     phase_train_small_f32(ast_mod, torch)
+    phase_train_loop(A, C, ast_mod, torch, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -88,10 +88,10 @@ def test_kernel_checks_head_width_and_layout():
 
 
 def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
-    lib = _cuda.library_path("attention")
+    lib = _cuda.library_path("attention_ws")
     assert lib.parent == _cuda.BUILD_DIR
-    assert lib.name.startswith("attention_") and lib.suffix == ".so"
-    assert lib == _cuda.library_path("attention")  # stable for one source
+    assert lib.name.startswith("attention_ws_") and lib.suffix == ".so"
+    assert lib == _cuda.library_path("attention_ws")  # stable for one source
     assert set(_cuda._ENTRY_POINTS) == {
         p.stem for p in _cuda.CSRC.glob("*.cu")}
     # the key covers the headers a source includes: an edited header
@@ -106,7 +106,7 @@ def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     names = list(_cuda._ENTRY_POINTS)
     before = {name: _cuda.library_path(name) for name in names}
-    assert before["attention"] == lib  # the same bytes, the same key
+    assert before["attention_ws"] == lib  # the same bytes, the same key
     header = tmp_path / "flash_common.cuh"
     header.write_text(header.read_text() + "// edited\n")
     after = {name: _cuda.library_path(name) for name in names}
@@ -132,13 +132,14 @@ def test_mha_packed_refuses_other_devices():
 
 
 @pytest.mark.parametrize("kind", ["mha_packed", "mha_packed_lse",
-                                  "mha_batched_heads", "mha", "mha_pairs"])
+                                  "mha_batched_heads", "mha", "mha_pairs",
+                                  "mha_qblock"])
 def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
     """The persistent grid is sized by the card's SM count, read from the
     device properties once per device and not on every call (checked with
-    the properties and the C call stood in for). `mha` and `mha_pairs`
-    call `mha_packed`'s kernel through entry points of their own in
-    csrc/attention_ws.cu, with the walk's int arguments."""
+    the properties and the C call stood in for). `mha`, `mha_pairs` and
+    `mha_qblock` call `mha_packed`'s kernel through entry points of their
+    own in csrc/attention_ws.cu, with the walk's int arguments."""
     reads, calls = [], []
 
     class Props:
@@ -156,8 +157,9 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
         B, S, NH, D = 3, 300, 4, 32
         q = torch.zeros(B, S, NH * D, dtype=torch.bfloat16)
         lse = torch.zeros(B, NH, S) if kind == "mha_packed_lse" else None
-        # mha's (B, S, NH, D) tensors, the others' packed (B, S, H)
-        x = q.view(B, S, NH, D) if kind == "mha" else q
+        # mha's and mha_qblock's (B, S, NH, D) tensors, the others' packed
+        # (B, S, H)
+        x = q.view(B, S, NH, D) if kind in ("mha", "mha_qblock") else q
         for _ in range(3):
             A._launch(kind, x, x, x, B, S, NH, D, lse=lse)
     finally:
@@ -213,8 +215,25 @@ def test_every_c_entry_point_is_bound(source):
     assert _exported(text) == set(_cuda._ENTRY_POINTS[source])
 
 
-# every kind `_launch` takes, and the backward kernels' own names
-_LAUNCHED = (*A._PIPELINED, "mha_qblock")
+# every kind `_launch` takes
+_LAUNCHED = A._PIPELINED
+
+
+@pytest.mark.parametrize("itemsize,source", [(2, "attention_ws"),
+                                             (4, "attention_pipelined")])
+def test_qblock_c_names_are_bound(itemsize, source):
+    """mha_qblock launches mha_packed's instances through C names of its
+    own: `mha_qblock_bf16` in csrc/attention_ws.cu, `mha_qblock_f32` in
+    csrc/attention_pipelined.cu, each with its occupancy twin, exported and
+    bound, and counted apart from mha_packed's."""
+    suffix = "bf16" if itemsize == 2 else "f32"
+    assert A._source("mha_qblock", itemsize) == source
+    assert A._source("mha_packed", itemsize) == source
+    exported = _exported((_cuda.CSRC / f"{source}.cu").read_text())
+    for name in (f"mha_qblock_{suffix}", f"mha_qblock_occupancy_{suffix}"):
+        assert name in exported and name in _cuda._ENTRY_POINTS[source]
+    assert _cuda._ENTRY_POINTS[source][f"mha_qblock_{suffix}"] == \
+        _cuda._ENTRY_POINTS[source][f"mha_packed_{suffix}"]
 
 
 @pytest.mark.parametrize("itemsize,suffix", [(2, "bf16"), (4, "f32")])

@@ -24,7 +24,7 @@ BLOCKED = ("mha_qblock", "mha_fused")
 # the kernels of the persistent walk (csrc/attention_pipelined.cu, and in
 # bf16 csrc/attention_ws.cu for mha_packed's function on the same memory),
 # and with mha_fused every kernel of those sources
-WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
+WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock")
 PERSISTENT = ("mha_batched_heads", *WS)
 PIPELINED = (*PERSISTENT, "mha_fused")
 # (S, block_q) of tests/test_pallas_attention.py:74-80; (1280, 96) and
@@ -93,8 +93,7 @@ def _walk(geo, B, S, NH):
 
 def _tile_starts(kind, geo, B, S, NH):
     """The first query row of every tile the kernel computes, as the
-    persistent walks and the grids of csrc/attention.cu and
-    csrc/attention_pipelined.cu give them."""
+    persistent walks and mha_fused's grid give them."""
     if kind in PERSISTENT:
         return sorted({s0 for cta in _walk(geo, B, S, NH)
                        for _, _, s0 in cta})
@@ -191,7 +190,7 @@ def test_pipelined_shared_memory_fits_its_ctas_per_sm(kind, itemsize, D):
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("kind", WS)
 def test_packed_kinds_take_the_persistent_walk(kind, itemsize, D, sms):
-    """mha_packed, its lse forward, mha and mha_pairs walk
+    """mha_packed, its lse forward, mha, mha_pairs and mha_qblock walk
     mha_batched_heads' items: in f32 with its geometry (grid, threads,
     rows, tiles, CTAs per SM), in bf16 with one CTA of a producer and the
     consumer warpgroups per SM (csrc/attention_ws.cu); the same for every
@@ -210,10 +209,18 @@ def test_packed_kinds_take_the_persistent_walk(kind, itemsize, D, sms):
             assert geo.threads == 128 * (consumers + 1)
 
 
-@pytest.mark.parametrize("bq,rows", [(1, 64), (64, 64), (65, 128), (96, 128),
-                                     (128, 128), (256, 128), (10**6, 128)])
-def test_qblock_rows(bq, rows):
-    assert A.qblock_rows(bq) == rows
+@pytest.mark.parametrize("bq", [1, 64, 65, 96, 128, 256, 10**6])
+def test_qblock_takes_the_packed_geometry(bq):
+    """mha_qblock launches mha_packed's instances on the same memory: its
+    geometry is mha_packed's for every block_q, in both dtypes and at both
+    head widths (the JAX grid of block_q-row query blocks is not carried
+    over); mha_fused's rows are 64 for every block_q."""
+    for itemsize in (2, 4):
+        for S, D in ((1214, 64), (300, 32)):
+            geo = A.launch_geometry("mha_qblock", 3, S, 12, D, itemsize,
+                                    block_q=bq)
+            assert geo == A.launch_geometry("mha_packed", 3, S, 12, D,
+                                            itemsize)
     fused = A.launch_geometry("mha_fused", 1, 1214, 12, 64, 2, block_q=bq)
     assert fused.rows == 64
 
@@ -289,7 +296,7 @@ def test_mha_fused_matches_jax_at_1792_lanes(dtype):
     ("mha_fused", (1, 64, 16, 48, 4), "head width"),      # D = 48
     ("mha_batched_heads", (1, 64, 2, 32, 2, 256, 0), "sms"),
     ("mha_batched_heads", (1, 64, 2, 128, 2), "head width"),
-    ("mha_qblock", (1, 64, 70000, 32, 2), "grid"),        # B * NH > 65535
+    ("mha_qblock", (2**25, 1214, 16, 32, 2), "32-bit"),
     ("mha_packed_bwd_dq", (70000, 64, 1, 32, 2), "grid"), # B > 65535
     # 2^25 x 16 heads x at least 7 row blocks (of 192 rows or fewer): past
     # a 32-bit item count
@@ -304,7 +311,7 @@ def test_launch_geometry_refuses(kind, args, match):
 
 def test_pipelined_occupancy_names_a_pipelined_kernel():
     with pytest.raises(ValueError, match="no pipelined"):
-        A.pipelined_occupancy("mha_qblock", 2, 64)
+        A.pipelined_occupancy("mha_packed_bwd_dq", 2, 64)
 
 
 def test_launch_geometry_refuses_block_q_below_one():

@@ -30,7 +30,15 @@ def test_port_imports_no_jax():
     assert "zenker_audio_detection_tpu_torch.infer.cascade" in mods
     assert "zenker_audio_detection_tpu_torch.ops.attention" in mods
     assert {"zenker_audio_detection_tpu_torch.train.optim",
-            "zenker_audio_detection_tpu_torch.train.metrics"} <= set(mods)
+            "zenker_audio_detection_tpu_torch.train.metrics",
+            "zenker_audio_detection_tpu_torch.train.loop",
+            "zenker_audio_detection_tpu_torch.data.augment",
+            "zenker_audio_detection_tpu_torch.data.stats",
+            "zenker_audio_detection_tpu_torch.utils.tracking",
+            "zenker_audio_detection_tpu_torch.analysis.cm_plots",
+            "zenker_audio_detection_tpu_torch.cli.train_stage1",
+            "zenker_audio_detection_tpu_torch.cli.train_stage2",
+            "zenker_audio_detection_tpu_torch.cli.compute_stats"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"

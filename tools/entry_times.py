@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times mha and mha_pairs beside mha_packed and SDPA on one NVIDIA GPU.
+"""Times mha, mha_qblock and mha_pairs beside mha_packed and SDPA on one
+NVIDIA GPU.
 
     python3 tools/entry_times.py
 
 At the AST's attention width, (B, S, NH, D) = (128, 1214, 12, 64), in bf16
-and f32, and at B = 1 in bf16, on seeded inputs: mha on (B, S, NH, D)
-tensors, mha_pairs and mha_packed on the packed (B, S, NH * D) view of the
+and f32, and at B = 1 in bf16, on seeded inputs: mha and mha_qblock (its
+default block_q) on (B, S, NH, D) tensors, mha_pairs and mha_packed on the packed (B, S, NH * D) view of the
 same memory, and torch's scaled_dot_product_attention on the (B, NH, S, D)
 view. Each time is the median of 10 CUDA-event runs after 2 warm-ups, as in
 chip_smoke.py. Prints the card's name and power limit first and one JSON
@@ -66,6 +67,7 @@ def main() -> int:
         heads = [t.transpose(1, 2) for t in x]
         row = {
             "mha": median_ms(lambda: A.mha(*x)),
+            "mha_qblock": median_ms(lambda: A.mha_qblock(*x)),
             "mha_pairs": median_ms(lambda: A.mha_pairs(*packed,
                                                        num_heads=NH)),
             "mha_packed": median_ms(lambda: A.mha_packed(*packed,

@@ -2,7 +2,7 @@
 // port's ops/attention.py that run it.
 //
 // Replaces two Pallas kernels of zenker_audio_detection_tpu/ops/attention.py
-// and, in f32, three more and the forward of its custom VJP (their bf16
+// and, in f32, four more and the forward of its custom VJP (their bf16
 // form is the warp-specialised walk of attention_ws.cu):
 //   mha_packed, f32   <- _attn_kernel_packed (grid (B, q blocks) on packed
 //                        (B, S, H = NH * D) projections, heads by lane
@@ -10,11 +10,12 @@
 //                        (B, S, NH, D) memory mha_batched_heads walks, so
 //                        mha_packed launches batched_kernel_f32's instances
 //                        as they are: no kernel of its own.
-//   mha, mha_pairs,   <- _attn_kernel (grid (B * NH)) and _attn_kernel_pairs
-//   f32                  (two heads per program, even NH): the same function
-//                        on the same memory, so the same instances
-//                        (attention_ws.cu says why the TPU decompositions
-//                        are not carried over).
+//   mha, mha_pairs,   <- _attn_kernel (grid (B * NH)), _attn_kernel_pairs
+//   mha_qblock, f32      (two heads per program, even NH) and
+//                        _attn_kernel_qblock (grid (B * NH, q blocks)): the
+//                        same function on the same memory, so the same
+//                        instances (attention_ws.cu says why the TPU
+//                        decompositions are not carried over).
 //   mha_packed_lse,   <- the forward of mha_packed_trainable (the custom
 //   f32                  VJP, _attn_kernel_packed under autograd):
 //                        batched_kernel_f32<D, true>, the same walk and
@@ -41,7 +42,8 @@
 //                        rows from registers. No (rows, NH * D) tile is
 //                        staged, so shared memory does not cap NH * D; an
 //                        odd NH leaves the last pair one head.
-// Contract: reference_mha's (ops/attention.py), as csrc/attention.cu.
+// Contract: reference_mha's (ops/attention.py): scores and softmax in f32,
+// p rounded to the input dtype for the PV product, f32 accumulation.
 //
 // What bounds it on an H100 SXM. At the AST shape (B, S, NH, D) =
 // (128, 1214, 12, 64) bf16: 4 * B * NH * S^2 * D = 579.5 GFLOP of products,
@@ -60,7 +62,7 @@
 //   * tiles are stored in the layout the descriptors read: 128-byte swizzle
 //     at D = 64 (a key's 64 lanes are one 128-byte row), 64-byte swizzle at
 //     D = 32, so the wgmma reads are free of bank conflicts;
-//   * the online softmax is f32 in the log2 domain, as in attention.cu: the
+//   * the online softmax is f32 in the log2 domain: the
 //     unnormalised exp(s - m) is rounded to bf16 for the PV product and the
 //     division by the row sum happens once, at the end;
 //   * 256 threads and at most 128 registers a thread (the launch bounds), and
@@ -419,8 +421,9 @@ int occupancy(int D, int threads, int smem) {
 // launch_geometry; `stream` is a cudaStream_t. Returns the cudaError_t of
 // the launch (0 on success); an instance that does not exist, or threads or
 // shared memory other than it needs, is cudaErrorInvalidValue. The caller
-// validates shapes. f32 mha_packed, mha and mha_pairs are mha_batched_heads'
-// kernel on the same memory, so their entry points launch one instance.
+// validates shapes. f32 mha_packed, mha, mha_pairs and mha_qblock are
+// mha_batched_heads' kernel on the same memory, so their entry points launch
+// one instance.
 #define PIPE_ENTRY(name, T, F)                                               \
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
@@ -432,6 +435,7 @@ int occupancy(int D, int threads, int smem) {
 PIPE_ENTRY(mha_packed_f32, float, kBatched)
 PIPE_ENTRY(mha_f32, float, kBatched)
 PIPE_ENTRY(mha_pairs_f32, float, kBatched)
+PIPE_ENTRY(mha_qblock_f32, float, kBatched)
 PIPE_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kBatched)
 PIPE_ENTRY(mha_batched_heads_f32, float, kBatched)
 PIPE_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
@@ -461,6 +465,7 @@ OCC_ENTRY(mha_packed_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_packed_lse_occupancy_f32, float, kBatched, true)
 OCC_ENTRY(mha_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_pairs_occupancy_f32, float, kBatched, false)
+OCC_ENTRY(mha_qblock_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_bf16, __nv_bfloat16, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_fused_occupancy_bf16, __nv_bfloat16, kFused, false)

@@ -1,7 +1,8 @@
 // A warp-specialised flash-attention walk for Hopper: the bf16 mha_packed,
-// mha_packed_lse, mha and mha_pairs of the port's ops/attention.py.
+// mha_packed_lse, mha, mha_pairs and mha_qblock of the port's
+// ops/attention.py.
 //
-// Replaces, in bf16, three Pallas kernels of
+// Replaces, in bf16, four Pallas kernels of
 // zenker_audio_detection_tpu/ops/attention.py and the forward of its custom
 // VJP mha_packed_trainable:
 //   mha_packed     <- _attn_kernel_packed (:295, call :330; grid (B, q
@@ -15,12 +16,21 @@
 //                     (B, S, NH, D)): ws_kernel<D, false>
 //   mha_pairs      <- _attn_kernel_pairs (:349, call :403; two heads per
 //                     program on packed tensors, even NH): ws_kernel<D, false>
-// All four compute one function on one memory: a contiguous (B, S, NH, D)
-// tensor is packed (B, S, NH * D). So mha and mha_pairs launch mha_packed's
-// instance as it is, and their outputs are its outputs bit for bit. The TPU
-// decompositions are not carried over. mha's one program per (batch, head)
-// holds a head's whole S in VMEM; here the walk's items are (batch, head,
-// 64 * kConsumers rows) and share K/V tiles through the ring and L2.
+//   mha_qblock     <- _attn_kernel_qblock (:165, call :202; grid (B * NH,
+//                     q blocks of block_q rows) on (B, S, NH, D)):
+//                     ws_kernel<D, false>
+// All five compute one function on one memory: a contiguous (B, S, NH, D)
+// tensor is packed (B, S, NH * D). So mha, mha_pairs and mha_qblock launch
+// mha_packed's instance as it is, and their outputs are its outputs bit for
+// bit. The TPU decompositions are not carried over. mha's one program per
+// (batch, head) holds a head's whole S in VMEM; here the walk's items are
+// (batch, head, 64 * kConsumers rows) and share K/V tiles through the ring
+// and L2. mha_qblock's grid of block_q-row query blocks keeps the score tile
+// small in VMEM and reuses a head's K/V across its q blocks; the walk
+// already streams kKeys-key K/V tiles by TMA under 64 * kConsumers-row
+// items, and a row's result does not depend on how rows are grouped, so a
+// grid of block_q-row blocks would be one more launch shape for the same
+// function.
 // mha_pairs packs two heads block-diagonally into a (2S, 128) K/V to fill
 // the 128-wide MXU; on Hopper the two heads' products cannot share a wgmma
 // (p differs per head) and the block-diagonal form doubles the products.
@@ -533,8 +543,8 @@ int occupancy(int D, int threads, int smem) {
 // a cudaStream_t. Returns the cudaError_t of the launch (0 on success); an
 // instance that does not exist, a launch other than it needs or a tensor
 // map cuTensorMapEncodeTiled refuses is cudaErrorInvalidValue. The caller
-// validates shapes. mha_packed, mha and mha_pairs launch one instance on
-// the same memory.
+// validates shapes. mha_packed, mha, mha_pairs and mha_qblock launch one
+// instance on the same memory.
 #define WS_ENTRY(name)                                                       \
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
@@ -546,6 +556,7 @@ int occupancy(int D, int threads, int smem) {
 WS_ENTRY(mha_packed_bf16)
 WS_ENTRY(mha_bf16)
 WS_ENTRY(mha_pairs_bf16)
+WS_ENTRY(mha_qblock_bf16)
 
 extern "C" int mha_packed_lse_bf16(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
@@ -568,3 +579,4 @@ WS_OCCUPANCY(mha_packed_occupancy_bf16, false)
 WS_OCCUPANCY(mha_packed_lse_occupancy_bf16, true)
 WS_OCCUPANCY(mha_occupancy_bf16, false)
 WS_OCCUPANCY(mha_pairs_occupancy_bf16, false)
+WS_OCCUPANCY(mha_qblock_occupancy_bf16, false)

@@ -1,7 +1,8 @@
 // What the port's attention sources share: register and warp helpers, the
-// asynchronous copies, the K/V tiles of the synchronous flash body and that
-// body's f32 form. Included by every attention source; each is its own
-// library, so everything here is internal to the file that includes it.
+// asynchronous copies, and the f32 FMA flash tile with its K/V tiles, which
+// attention_pipelined.cu's f32 instances run. Included by every attention
+// source; each is its own library, so everything here is internal to the
+// file that includes it.
 
 #pragma once
 
@@ -96,20 +97,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The shared-memory K/V tiles of the synchronous body: one head's D lanes
-// of 64 keys. bf16 rows are padded by 8 elements, which keeps the fragment
-// reads free of bank conflicts (a row is 4 banks apart from the next at
-// either width).
+// The shared-memory K/V tiles of the f32 tile below: one head's D lanes of
+// 64 keys.
 template <typename T, int D>
 struct Tiles;
-
-template <int D>
-struct Tiles<__nv_bfloat16, D> {
-  static constexpr int kLdk = D + 8;    // k[key][d]
-  static constexpr int kLdv = kBK + 8;  // v[d][key], V transposed
-  __nv_bfloat16 k[kBK * kLdk];
-  __nv_bfloat16 v[D * kLdv];
-};
 
 template <int D>
 struct Tiles<float, D> {

@@ -448,3 +448,28 @@ def save_hf_model_dir(params: Params, config: ASTConfig, model_dir: str,
                   sort_keys=True)
     write_safetensors(to_hf_state_dict(params),
                       os.path.join(model_dir, "model.safetensors"))
+
+
+def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    """Nested dict -> {dotted key: leaf}, the JAX package's flattening (the
+    names of its checkpoints' `params.safetensors`)."""
+    out: dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(_flatten_tree(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """Inverse of `_flatten_tree`."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        node = tree
+        ks = key.split(".")
+        for k in ks[:-1]:
+            node = node.setdefault(k, {})
+        node[ks[-1]] = arr
+    return tree

@@ -47,9 +47,9 @@ def _walks(names: list[str]) -> dict:
 
 
 # mha_packed's function on the same memory: the walks' own instances
-_SAME_AS_PACKED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
+_SAME_AS_PACKED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
+                   "mha_qblock")
 _ENTRY_POINTS = {
-    "attention": {f"mha_qblock_{dtype}": (4, 8, True) for dtype in _DTYPES},
     "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8, True)
                       for part in ("dq", "dkdv") for dtype in _DTYPES},
     "attention_pipelined": _walks(

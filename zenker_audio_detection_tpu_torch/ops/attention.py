@@ -18,13 +18,12 @@ log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
 probabilities tile by tile.
 
 On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention_ws.cu` (bf16 `mha_packed`, `mha_packed_lse`, `mha` and
-`mha_pairs`: a persistent CTA per SM, a TMA producer warpgroup and consumer
-warpgroups of 64 rows, `ws_tile`), `csrc/attention_pipelined.cu`
-(`mha_batched_heads`, `mha_fused` and the f32 forms of those four: a
-cp.async ring and wgmma, under decompositions that fill the card),
-`csrc/attention.cu` (`mha_qblock`) or `csrc/attention_bwd.cu`; on CPU
-tensors each runs
+`csrc/attention_ws.cu` (bf16 `mha_packed`, `mha_packed_lse`, `mha`,
+`mha_pairs` and `mha_qblock`: a persistent CTA per SM, a TMA producer
+warpgroup and consumer warpgroups of 64 rows, `ws_tile`),
+`csrc/attention_pipelined.cu` (`mha_batched_heads`, `mha_fused` and the f32
+forms of those five: a cp.async ring and wgmma, under decompositions that
+fill the card) or `csrc/attention_bwd.cu`; on CPU tensors each runs
 the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
 `mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
 fallback from a kernel to the plain version on the card: a CUDA tensor the
@@ -52,10 +51,6 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _round_up(x: int, m: int) -> int:
-    return cdiv(x, m) * m
-
-
 KERNEL_HEAD_DIMS = (32, 64)  # head widths the kernels are compiled for
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_X = 2**31 - 1
@@ -64,7 +59,6 @@ _MAX_GRID_YZ = 65535
 MAX_SHARED_BYTES = 232_448
 _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
-_QBLOCK_MAX_ROWS = 128  # mha_qblock's 8-warp tile
 # the heads of one mha_fused CTA; mha_pairs takes whole pairs of heads
 _PAIR_HEADS = 2
 # csrc/attention_ws.cu: mha_packed's function on the same memory (a
@@ -72,7 +66,7 @@ _PAIR_HEADS = 2
 # persistent walk with one CTA per SM: a producer warpgroup and consumer
 # warpgroups of 64 rows, a ring of K and V tiles and its mbarriers
 # (`ws_tile`)
-_WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs")
+_WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock")
 # csrc/attention_pipelined.cu: the persistent (batch, head, 128-row block)
 # walk of mha_batched_heads, which also serves the f32 forms of _WS, and
 # mha_fused's grid
@@ -132,14 +126,12 @@ class Launch:
     ctas_per_sm: int | None = None
 
 
-def qblock_rows(block_q: int) -> int:
-    """The query rows of one `mha_qblock` block for the JAX `block_q`:
-    rounded up to a multiple of 64 (a 4-warp tile of 16 rows per warp) and
-    capped at 128 (8 warps). Each row's result does not depend on how rows
-    are grouped into blocks, so every `block_q` gives the same output."""
+def _check_block_q(block_q: int) -> None:
+    """`block_q` is the JAX functions' query block, at least 1. Each row's
+    result does not depend on how rows are grouped into blocks, so the
+    kernels' grids do not read it and every value gives the same output."""
     if block_q < 1:
         raise ValueError(f"block_q must be at least 1, got {block_q}")
-    return min(_round_up(block_q, _TILE_ROWS), _QBLOCK_MAX_ROWS)
 
 
 def parse_ws_tile(text: str) -> tuple[int, int, int]:
@@ -161,10 +153,8 @@ def ws_tile() -> tuple[int, int, int]:
 
 
 def _static_smem(D: int, itemsize: int) -> int:
-    """The K/V tiles of `csrc/flash_common.cuh:Tiles` for one head, in
+    """The f32 K/V tiles of `csrc/flash_common.cuh:Tiles` for one head, in
     bytes."""
-    if itemsize == 2:
-        return itemsize * (_TILE_KEYS * (D + 8) + D * (_TILE_KEYS + 8))
     return itemsize * 2 * _TILE_KEYS * D
 
 
@@ -172,9 +162,9 @@ def _pipelined(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
                sms: int, tile: tuple[int, int, int] | None):
     """(grid, rows, threads, smem, ctas_per_sm) of the kernels of
     `csrc/attention_pipelined.cu` and `csrc/attention_ws.cu`. The
-    persistent walk: bf16 `mha_packed`, `mha_packed_lse`, `mha` and
-    `mha_pairs` one CTA per SM of a producer and 64-row consumer
-    warpgroups (attention_ws.cu, of tile shape `tile`, by default
+    persistent walk: bf16 `mha_packed`, `mha_packed_lse`, `mha`,
+    `mha_pairs` and `mha_qblock` one CTA per SM of a producer and 64-row
+    consumer warpgroups (attention_ws.cu, of tile shape `tile`, by default
     `ws_tile()`);
     otherwise two warpgroups (256 threads) and a ring of `_RING_STAGES`
     stages of 64-key K and V tiles for one head, 2 CTAs per SM, or in f32
@@ -218,9 +208,9 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
                     tile: tuple[int, int, int] | None = None) -> Launch:
     """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
     card's SM count, which sizes the persistent grid of `mha_packed`,
-    `mha_packed_lse`, `mha`, `mha_pairs` and `mha_batched_heads`; `tile` is
-    the shape of a variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the
-    source's own by default. Query blocks are counted with `cdiv`, so the
+    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock` and
+    `mha_batched_heads`; `tile` is the shape of a variant of
+    `csrc/attention_ws.cu` (`parse_ws_tile`), the source's own by default. Query blocks are counted with `cdiv`, so the
     last, ragged one is launched too. `mha_pairs` takes an even NH: the JAX
     function sends an odd one to `mha_packed`."""
     if kind == "mha_pairs" and NH % _PAIR_HEADS:
@@ -230,11 +220,8 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
         grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
     elif kind == "mha_packed_bwd_dkdv":
         grid = (cdiv(S, rows), NH, B)  # 64-key tiles: rows are keys here
-    elif kind == "mha_qblock":
-        rows = qblock_rows(block_q)
-        grid = (cdiv(S, rows), B * NH, 1)
     elif kind in _PIPELINED:
-        qblock_rows(block_q)  # validates; the rows do not depend on it
+        _check_block_q(block_q)
         grid, rows, threads, smem, ctas = _pipelined(kind, B, S, NH, D,
                                                      itemsize, sms, tile)
     else:
@@ -296,9 +283,8 @@ def _suffix(x: torch.Tensor) -> str:
 def _source(kind: str, itemsize: int) -> str:
     """The csrc/ source of `kind`'s forward kernel for the dtype of
     `itemsize` bytes."""
-    if kind in _WS and itemsize == 2:
-        return "attention_ws"
-    return "attention_pipelined" if kind in _PIPELINED else "attention"
+    return ("attention_ws" if kind in _WS and itemsize == 2
+            else "attention_pipelined")
 
 
 def _run(source: str, fn_name: str, tensors, ints, device) -> None:
@@ -331,18 +317,17 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q,
                           sm_count(q.device))
     out = torch.empty_like(q)
-    ints = (B, S, NH, D) if kind in _PIPELINED else (S, NH, D)
     tensors = (q, k, v, out) if lse is None else (q, k, v, out, lse)
     _run(_source(kind, q.element_size()), f"{kind}_{_suffix(q)}", tensors,
-         (*ints, *geo.grid, geo.threads, geo.smem), q.device)
+         (B, S, NH, D, *geo.grid, geo.threads, geo.smem), q.device)
     return out
 
 
 def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
     """The CTAs of `kind`'s kernel (a kind of `_PIPELINED`: `mha_packed`,
-    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_batched_heads` or
-    `mha_fused`, of the dtype of `itemsize` bytes, head width D) that fit
-    on one SM of the current card at `launch_geometry`'s threads and shared
+    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
+    `mha_batched_heads` or `mha_fused`, of the dtype of `itemsize` bytes,
+    head width D) that fit on one SM of the current card at `launch_geometry`'s threads and shared
     memory, as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them.
     Builds the kernels if needed; raises on a CUDA error."""
     if kind not in _PIPELINED:
@@ -374,8 +359,7 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gives the same output. Each kernel launch adds one to
     `mha_packed.launches`."""
     _check(q, k, v, "mha_packed", 3)
-    if block_q < 1:
-        raise ValueError(f"block_q must be at least 1, got {block_q}")
+    _check_block_q(block_q)
     _check_heads(q, num_heads)
     if q.device.type == "cpu":
         return mha_packed_reference(q, k, v, num_heads)
@@ -405,8 +389,7 @@ def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch counts in `mha_packed.launches`). `block_q` >= 1 is accepted and
     does not change the output. CPU tensors run `mha_packed_reference`."""
     _check(q, k, v, "mha_pairs", 3)
-    if block_q < 1:
-        raise ValueError(f"block_q must be at least 1, got {block_q}")
+    _check_block_q(block_q)
     _check_heads(q, num_heads)
     if num_heads % _PAIR_HEADS:
         return mha_packed(q, k, v, num_heads=num_heads, block_q=block_q)
@@ -687,8 +670,7 @@ def _attend(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry's kernel on the card, counted in `entry.launches`."""
     kind = entry.__name__
     _check(q, k, v, kind, 4)
-    if block_q < 1:
-        raise ValueError(f"block_q must be at least 1, got {block_q}")
+    _check_block_q(block_q)
     if q.device.type == "cpu":
         return reference_mha(q, k, v)
     out = _launch(kind, q, k, v, *q.shape, block_q)
@@ -724,13 +706,16 @@ def mha_batched_heads(q: torch.Tensor, k: torch.Tensor,
 
 def mha_qblock(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                block_q: int = 256) -> torch.Tensor:
-    """Same contract as `mha`, one block per (query block, batch * head).
-
-    A block's query rows are `qblock_rows(block_q)`: `block_q` rounded up to
-    a multiple of 64 and capped at 128 (one warp per 16 rows,
-    mma.m16n8k16), so the JAX test values 64, 96, 128 and 256 give 64, 128,
-    128 and 128 rows; every `block_q` >= 1 gives the same output. The
-    number of blocks is cdiv(S, rows). Launches count in
+    """Same contract as `mha`. The TPU kernel's grid is (batch * head,
+    query block of `block_q` rows): it keeps the score tile small in VMEM
+    and reuses a head's K/V across its query blocks. Each row's result does
+    not depend on `block_q`, and a contiguous (B, S, NH, D) tensor is packed
+    (B, S, NH * D) memory, so CUDA tensors launch `mha_packed`'s kernel as
+    it is, as `mha` does: the persistent walk over (batch element, head,
+    row block) items that streams K/V tiles (bf16 `csrc/attention_ws.cu`,
+    f32 `csrc/attention_pipelined.cu`), and the output is `mha_packed`'s on
+    that memory bit for bit. `block_q` >= 1 is checked and does not change
+    the output. CPU tensors run `reference_mha`. Launches count in
     `mha_qblock.launches`."""
     return _attend(mha_qblock, q, k, v, block_q)
 

@@ -123,3 +123,34 @@ def confusion_and_report(y_true, y_pred,
     report += row_fmt.format("weighted avg", *weighted, total, width=width,
                              digits=digits)
     return cm, report
+
+
+def report_rows(y_true, y_pred, class_names) -> list[list]:
+    """The rows of sklearn's `classification_report(..., labels=range(C),
+    output_dict=True, zero_division=0)` that hold a precision, as the JAX
+    trainer logs them into its report table: [name, precision, recall,
+    f1-score, support] for each class, then "macro avg" and "weighted avg"
+    (the accuracy entry is a bare number there, so it has no row; with a
+    label outside 0..C-1 in the data sklearn adds "micro avg" first)."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    labels = list(range(len(class_names)))
+    p, r, f1, support, tp, pred_sum = _per_label(y_true, y_pred, labels)
+    rows = [[name, float(p[i]), float(r[i]), float(f1[i]), int(support[i])]
+            for i, name in enumerate(class_names)]
+    total = int(np.sum(support))
+    present = set(np.unique(np.concatenate([y_true, y_pred])).tolist())
+    if not present <= set(labels):
+        rows.append(["micro avg", float(_divide(tp.sum(), pred_sum.sum())),
+                     float(_divide(tp.sum(), support.sum())),
+                     float(_divide(2 * tp.sum(),
+                                   support.sum() + pred_sum.sum())), total])
+    rows.append(["macro avg", float(np.mean(p)), float(np.mean(r)),
+                 float(np.mean(f1)), total])
+    if support.sum() == 0:
+        weighted = (0.0, 0.0, 0.0)
+    else:
+        weighted = tuple(float(np.average(x, weights=support))
+                         for x in (p, r, f1))
+    rows.append(["weighted avg", *weighted, total])
+    return rows
