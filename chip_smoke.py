@@ -89,7 +89,27 @@ fails the run loudly:
      TwoStageEngine on phase 4's audio; ms per step (median of steps 2-8),
      featurization seconds and peak memory. Then a small f32 config on the
      card: 2 epochs straight against 1 epoch and --resume for the second,
-     whose best parameters must be equal bit for bit.
+     whose best parameters must be equal bit for bit;
+  8. int8 and serving, at full width (phase 4's stages and audio, bf16,
+     "kernel" attention): models.ast._dense_int8 on the card bit for bit
+     the CPU's (each step: the token scales, the int8 activations, the
+     int32 product, the output), whether torch._int_mm takes a row-major
+     second operand; CascadeConfig(int8=True) engines against the bf16
+     engines in "all" and "gated" modes (INT8_TOL), their committed int8
+     leaves, windows/s of both and the encoder GEMM weight bytes; a small
+     f32 int8 model card vs CPU; StreamingCascade(chunk_windows=32) after
+     warmup() on the audio in seeded random chunks, bf16 and int8, against
+     the offline engine (every window once in order, ENGINE_TOL, the gate
+     identical outside that band, summary()); the launches of one emit (12
+     mha_packed per stage per dispatched bucket, no other kernel), counts
+     zeroed just before and read just after; the emit latency at buckets 8
+     and 32; mha_packed alone at B = 8 and 32, kernel and the wrapper's
+     host path; then the CLIs as subprocesses: cli.serve on exported
+     full-size f32 and int8 directories against cli.infer_long_audio on
+     the same WAV, cli.serve_supervisor with --rss-limit-mb under the
+     child's startup RSS (a recycle after every emitted batch) against an
+     uninterrupted serve, and cli.run_batch_2stage on a fold of two
+     patients against cli.infer_long_audio.
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -106,9 +126,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
+ROOT = str(Path(__file__).resolve().parent)
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32
 # rate outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -740,6 +762,19 @@ def check_probs(p: np.ndarray, W: int, what: str) -> None:
         raise AssertionError(f"{what}: rows do not sum to 1")
 
 
+def calibrate_gate(engine_all, audio: np.ndarray) -> tuple[float, float]:
+    """The stage-1 gate on random weights: the class-1 head bias shift and
+    the threshold at which about a third of the windows pass (the study's
+    rate, bench.py:calibrated_gated_engine)."""
+    p1_probe, _ = engine_all.window_probs(audio)
+    p = np.clip(p1_probe[:, 1], 1e-9, 1 - 1e-9)
+    d = np.log((1 - p) / p)
+    delta = float(np.quantile(d, 0.995))
+    threshold = max(0.5, float(np.quantile(1.0 / (1.0 + np.exp(d - delta)),
+                                           1.0 - 1.0 / 3.0)))
+    return delta, threshold
+
+
 def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     batch = 128
     audio = seeded_audio(60.0, seed=3)
@@ -754,15 +789,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
         f"{time.perf_counter() - t0:.1f} s; {W} windows of 60 s audio")
     engine_all.window_probs(audio)  # warm-up: cuBLAS/cuDNN initialisation
 
-    # The stage-1 gate on random weights: shift the class-1 head bias and
-    # pick the threshold so that about a third of the windows pass (the
-    # study's rate, bench.py:calibrated_gated_engine).
-    p1_probe, _ = engine_all.window_probs(audio)
-    p = np.clip(p1_probe[:, 1], 1e-9, 1 - 1e-9)
-    d = np.log((1 - p) / p)
-    delta = float(np.quantile(d, 0.995))
-    threshold = max(0.5, float(np.quantile(1.0 / (1.0 + np.exp(d - delta)),
-                                           1.0 - 1.0 / 3.0)))
+    delta, threshold = calibrate_gate(engine_all, audio)
     g1, g2 = full_size_specs(C, ast_mod, stage1_bias_shift=delta)
     engine_gated = C.TwoStageEngine(g1, g2, C.CascadeConfig(
         stage2_mode="gated", attention_impl="kernel",
@@ -1623,6 +1650,602 @@ def phase_train_loop(A, C, ast_mod, torch, smi: str) -> None:
             raise AssertionError("--resume on the card is not a straight run")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: int8 inference and live serving
+# ---------------------------------------------------------------------------
+
+# int8 engine against the bf16 engine, window probabilities: the documented
+# drift band of tests/test_int8.py:75
+INT8_TOL = 5e-2
+# small f32 int8 model, card vs CPU (logits): the int8 products are exact,
+# but the attention kernel sums in another order than the plain version,
+# and a 1-ulp difference can flip a rint decision of the next layer's
+# activation quantization, which moves that product by one quantization
+# step (max |x| / 127 of its token)
+INT8_SMALL_TOL = 1e-2
+STREAM_CHUNK = 32  # windows per streaming dispatch (16 s of audio)
+EMIT_BUCKETS = (8, 32)  # the streaming window buckets timed
+EMIT_REPEATS = 10
+
+
+def gate_mask(engine, p1: np.ndarray) -> np.ndarray:
+    mask = np.zeros(len(p1), bool)
+    mask[engine._gate_indices(p1)] = True
+    return mask
+
+
+def near_gate(p1: np.ndarray, threshold: float, tol: float) -> np.ndarray:
+    """Windows whose stage-1 swallow probability lies within tol of the
+    gate's threshold or of the argmax boundary 0.5."""
+    p = p1[:, 1]
+    return (np.abs(p - threshold) <= tol) | (np.abs(p - 0.5) <= tol)
+
+
+def compare_gated(what: str, engine, got, want, tol: float) -> None:
+    """(stage-1, stage-2) probabilities `got` against `want`: stage 1
+    within tol, the gate identical except on windows within tol of its
+    thresholds (read on `want`), stage 2 within tol where both gated."""
+    (g1, g2), (w1, w2) = got, want
+    thr = engine.config.stage1_threshold
+    err1 = float(np.abs(g1 - w1).max())
+    gm, wm = gate_mask(engine, g1), gate_mask(engine, w1)
+    flips = gm != wm
+    near = near_gate(w1, thr, tol)
+    both = gm & wm
+    err2 = float(np.abs(g2[both] - w2[both]).max()) if both.any() else 0.0
+    log(f"[serve] {what}: stage-1 max abs err {err1:.3g}, stage-2 "
+        f"{err2:.3g} on the {int(both.sum())} windows gated in both "
+        f"(tolerance {tol}); gate decisions differing {int(flips.sum())}, "
+        f"windows within the tolerance of a threshold {int(near.sum())}")
+    if not (err1 <= tol and err2 <= tol and not (flips & ~near).any()):
+        raise AssertionError(f"{what} disagrees beyond {tol} or gates a "
+                             f"window away from its thresholds")
+
+
+def compare_summary(what: str, got: dict, want: dict, tol: float,
+                    slack: int) -> None:
+    """Per-file summaries, on the fields of `got`: counts equal up to
+    `slack` (windows within tol of a gate threshold), probabilities and
+    ratios within tol when slack is 0."""
+    bad = []
+    for k, g in got.items():
+        v = want[k]
+        if isinstance(v, int) and not isinstance(v, bool):
+            if abs(g - v) > slack:
+                bad.append(k)
+        elif slack:
+            continue
+        elif isinstance(v, (list, float)):
+            if g is None or np.abs(np.asarray(g, float)
+                                   - np.asarray(v, float)).max() > tol:
+                bad.append(k)
+        elif g != v:
+            bad.append(k)
+    log(f"[serve] {what}: summaries agree (counts to {slack} windows)"
+        if not bad else f"[serve] {what}: {bad} differ: {got} vs {want}")
+    if bad:
+        raise AssertionError(f"{what}: summary fields {bad} differ")
+
+
+def encoder_gemm_bytes(params) -> int:
+    return sum(t.numel() * t.element_size()
+               for name in ("q", "k", "v", "attn_out", "fc1", "fc2")
+               for t in params["encoder"][name].values())
+
+
+def phase_int8(A, C, ast_mod, torch, smi: str) -> dict:
+    """int8 inference on the card at full width: `_dense_int8` on the card
+    bit for bit the CPU's, the int8 engine within INT8_TOL of the bf16
+    engine in "all" and "gated" modes, a small f32 int8 model card vs CPU,
+    int8 leaves in the committed params, windows/s and weight bytes."""
+    gen = np.random.default_rng(21)
+    params = ast_mod.quantize_params(full_size_specs(C, ast_mod)[0].params)
+    for name, layer, dtype in (("q", 0, torch.bfloat16),
+                               ("fc2", 11, torch.float32)):
+        leaf = {k: v[layer] for k, v in params["encoder"][name].items()}
+        K = leaf["kernel_int8"].shape[0]
+        x = torch.from_numpy(gen.standard_normal((4, 1214, K)).astype(
+            np.float32) * np.linspace(0.05, 4.0, 1214)[:, None]).to(dtype)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = ast_mod.cast_params({"l": leaf}, dtype, dev)["l"]
+            xd = x.to(dev)
+            # the steps of _dense_int8, to name the op should one differ
+            s_x, x_q = ast_mod.quantize_tokens(xd)
+            y = torch._int_mm(x_q.reshape(-1, K), p["kernel_int8"])
+            out = ast_mod._dense_int8(xd, p)
+            outs[dev] = [t.cpu() for t in (s_x, x_q, y, out)]
+        same = [torch.equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"])]
+        log(f"[int8] _dense_int8 {name} layer {layer} {str(dtype)[6:]} "
+            f"(4, 1214, {K}): card vs CPU bitwise s_x {same[0]}, x_q "
+            f"{same[1]}, int32 product {same[2]}, output {same[3]}")
+        if not all(same):
+            raise AssertionError("_dense_int8 on the card is not the CPU's "
+                                 "bit for bit")
+        # the layout of the int8 product's second operand: cast_params
+        # keeps it column-major; is a row-major one taken, and how fast?
+        a, w_cols = x_q.reshape(-1, K), p["kernel_int8"]
+        w_rows = w_cols.contiguous()
+        try:
+            ok = torch.equal(torch._int_mm(a, w_rows).cpu(), outs["cuda"][2])
+            log(f"[int8] _int_mm with a row-major second operand: accepted, "
+                f"equal {ok}")
+        except RuntimeError as e:
+            log(f"[int8] _int_mm with a row-major second operand: refused "
+                f"({str(e).splitlines()[0][:160]})")
+    # the int8 product at the main path's fc1 shape (batch 128 x 1214
+    # tokens, 768 -> 3072): column-major and row-major second operand, and
+    # the bf16 product it replaces
+    w_cols = ast_mod.cast_params(params, torch.bfloat16, "cuda")[
+        "encoder"]["fc1"]["kernel_int8"][0]
+    K, N = w_cols.shape
+    a = torch.randint(-127, 128, (128 * 1214, K), dtype=torch.int8,
+                      device="cuda")
+    w_rows = w_cols.contiguous()
+    a16, w16 = a.to(torch.bfloat16), w_cols.to(torch.bfloat16)
+    times = {"column-major": median_ms(lambda: torch._int_mm(a, w_cols)),
+             "row-major": median_ms(lambda: torch._int_mm(a, w_rows)),
+             "bf16": median_ms(lambda: a16 @ w16)}
+    ops = 2.0 * a.shape[0] * K * N
+    log(f"[int8] _int_mm at {tuple(a.shape)} x {(K, N)}: column-major "
+        f"second operand {times['column-major']:.4f} ms, row-major "
+        f"{times['row-major']:.4f} ms, the bf16 product "
+        f"{times['bf16']:.4f} ms; bounds {ops / 1.979e15 * 1e3:.4f} ms int8, "
+        f"{ops / PEAK_BF16_FLOPS * 1e3:.4f} ms bf16; {smi}")
+    del a, a16, w16, w_rows
+
+    audio = seeded_audio(60.0, seed=3)
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    s1, s2 = full_size_specs(C, ast_mod)
+    kw = dict(batch_size=128, dtype=torch.bfloat16, attention_impl="kernel")
+    bf16_all = C.TwoStageEngine(s1, s2, C.CascadeConfig(
+        stage2_mode="all", **kw), device="cuda")
+    delta, threshold = calibrate_gate(bf16_all, audio)
+    g1, g2 = full_size_specs(C, ast_mod, stage1_bias_shift=delta)
+    gated_kw = dict(stage2_mode="gated", stage1_threshold=threshold, **kw)
+    engines = {
+        ("bf16", "all"): bf16_all,
+        ("int8", "all"): C.TwoStageEngine(s1, s2, C.CascadeConfig(
+            stage2_mode="all", int8=True, **kw), device="cuda"),
+        ("bf16", "gated"): C.TwoStageEngine(g1, g2, C.CascadeConfig(
+            **gated_kw), device="cuda"),
+        ("int8", "gated"): C.TwoStageEngine(g1, g2, C.CascadeConfig(
+            int8=True, **gated_kw), device="cuda")}
+    for committed in (engines["int8", "all"]._params1,
+                      engines["int8", "gated"]._params2):
+        for name in ast_mod.INT8_DENSE:
+            w = committed["encoder"][name]["kernel_int8"]
+            if w.dtype != torch.int8 or w.device.type != "cuda":
+                raise AssertionError(f"committed {name} is {w.dtype} on "
+                                     f"{w.device}, not int8 on the card")
+    probs, rates = {}, {}
+    for key, engine in engines.items():
+        engine.window_probs(audio)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs[key] = engine.window_probs(audio)
+        rates[key] = W / (time.perf_counter() - t0)
+        for p_, part in zip(probs[key], ("stage1", "stage2")):
+            check_probs(p_, W, f"{key} {part}")
+    for mode in ("all", "gated"):
+        compare_gated(f"int8 engine vs bf16 engine, {mode} mode",
+                      engines["bf16", mode], probs["int8", mode],
+                      probs["bf16", mode], INT8_TOL)
+    nbytes = {"f32": encoder_gemm_bytes(s1.params),
+              "bf16": encoder_gemm_bytes(bf16_all._params1),
+              "int8": encoder_gemm_bytes(engines["int8", "all"]._params1)}
+    log(f"[int8] full width, batch 128, bf16 compute, kernel attention, "
+        f"{W} windows: all mode int8 {rates['int8', 'all']:.2f} windows/s "
+        f"vs bf16 {rates['bf16', 'all']:.2f}; gated int8 "
+        f"{rates['int8', 'gated']:.2f} vs bf16 {rates['bf16', 'gated']:.2f} "
+        f"({int(gate_mask(engines['bf16', 'gated'], probs['bf16', 'gated'][0]).sum())}"
+        f"/{W} gated); the six encoder GEMMs' weights per stage: int8 "
+        f"{nbytes['int8'] / 1e6:.1f} MB, bf16 {nbytes['bf16'] / 1e6:.1f} MB, "
+        f"f32 {nbytes['f32'] / 1e6:.1f} MB (int8/f32 "
+        f"{nbytes['int8'] / nbytes['f32']:.3f}); {smi}")
+
+    # a small f32 int8 model with the AST's head width, card vs CPU
+    cfg = ast_mod.ASTConfig(hidden_size=128, num_hidden_layers=2,
+                            num_attention_heads=2, intermediate_size=256,
+                            max_length=256)
+    small = ast_mod.init_params(np.random.default_rng(5), cfg)
+    for key in ("pos_embed", "cls_token", "dist_token"):
+        small[key] = torch.from_numpy(
+            gen.standard_normal(small[key].shape).astype(np.float32))
+    small = ast_mod.quantize_params(small)
+    x = torch.from_numpy(gen.standard_normal(
+        (3, cfg.max_length, cfg.num_mel_bins)).astype(np.float32))
+    want = ast_mod.forward(small, x, cfg, attention_impl="kernel")
+    dev = ast_mod.cast_params(small, torch.float32, "cuda")
+    got = ast_mod.forward(dev, x.cuda(), cfg, attention_impl="kernel").cpu()
+    err = (got - want).abs().max().item()
+    log(f"[int8] small f32 int8 model, card vs CPU: max abs logit err "
+        f"{err:.3g} (tolerance {INT8_SMALL_TOL})")
+    if not err <= INT8_SMALL_TOL:
+        raise AssertionError(f"the int8 forward on the card disagrees: {err}")
+    return {"engines": engines, "probs": probs, "audio": audio,
+            "threshold": threshold, "delta": delta,
+            "rates": {f"{d}_{m}": r for (d, m), r in rates.items()},
+            "nbytes": nbytes}
+
+
+def feed_chunks(stream, audio: np.ndarray, seed: int) -> list:
+    """`audio` fed in seeded random chunks of 0 to 1.5 s, then flushed."""
+    rng = np.random.default_rng(seed)
+    out, i = [], 0
+    while i < len(audio):
+        n = int(rng.integers(0, 24000))
+        out.extend(stream.feed(audio[i: i + n]))
+        i += n
+    return out + stream.flush()
+
+
+def check_stream(what: str, engine, audio: np.ndarray, want) -> None:
+    """A StreamingCascade of `engine` (STREAM_CHUNK windows a dispatch,
+    after warmup) on `audio` in seeded random chunks against the offline
+    probabilities `want`: every window once and in order, probabilities
+    within ENGINE_TOL (bucket sizes change cuBLAS's M), the gate identical
+    outside that band, the summary the offline engine's."""
+    from zenker_audio_detection_tpu_torch.infer.streaming import (
+        StreamingCascade)
+
+    stream = StreamingCascade(engine, chunk_windows=STREAM_CHUNK)
+    stream.warmup()
+    results = feed_chunks(stream, audio, seed=8)
+    W = len(want[0])
+    if [r.window_index for r in results] != list(range(W)):
+        raise AssertionError(f"{what}: windows not emitted once in order")
+    got = (stream.stage1_probs(), stream.stage2_probs())
+    compare_gated(f"{what} vs the offline engine", engine, got, want,
+                  ENGINE_TOL)
+    # the running accumulators are the reference summary of the stream's
+    # own windows, and that of the offline windows up to the windows near a
+    # threshold
+    own, _, _, _ = engine.gate_and_summarize(*got)
+    compare_summary(f"{what}: summary() vs its windows' gate_and_summarize",
+                    stream.summary(), own, 1e-9, 0)
+    offline, _, _, _ = engine.gate_and_summarize(*want)
+    slack = int(near_gate(want[0], engine.config.stage1_threshold,
+                          ENGINE_TOL).sum())
+    compare_summary(f"{what}: summary() vs the offline engine's",
+                    stream.summary(), offline, ENGINE_TOL, slack)
+
+
+def emit_ms(engine, chunk_windows: int) -> list:
+    """Host-clock ms of each steady-state `feed` that emits one batch of
+    `chunk_windows` windows (the feed's call to its fetched results),
+    after warmup and a first emit."""
+    from zenker_audio_detection_tpu_torch.infer.streaming import (
+        StreamingCascade)
+
+    stream = StreamingCascade(engine, chunk_windows=chunk_windows)
+    stream.warmup()
+    audio = seeded_audio(1.0 + 0.5 * chunk_windows * (EMIT_REPEATS + 1), 13)
+    first = (chunk_windows - 1) * 8000 + 16000
+    if len(stream.feed(audio[:first])) != chunk_windows:
+        raise AssertionError("the first emit did not come")
+    times = []
+    for i in range(EMIT_REPEATS):
+        lo = first + i * chunk_windows * 8000
+        t0 = time.perf_counter()
+        out = stream.feed(audio[lo: lo + chunk_windows * 8000])
+        times.append((time.perf_counter() - t0) * 1e3)
+        if len(out) != chunk_windows:
+            raise AssertionError(f"{len(out)} windows emitted, want "
+                                 f"{chunk_windows}")
+    return times
+
+
+def phase_stream(A, C, torch, int8: dict, smi: str) -> dict:
+    """StreamingCascade on the card at full width: the bf16 gated engine
+    and the int8 gated engine against their offline probabilities, the
+    launches of one emit, the emit latency at buckets 8 and 32, and
+    mha_packed alone at B = 8 and 32 (kernel and the wrapper's host
+    path)."""
+    from zenker_audio_detection_tpu_torch.infer.streaming import (
+        StreamingCascade)
+
+    engines, probs, audio = int8["engines"], int8["probs"], int8["audio"]
+    # "gated": the calibrated gate puts the stage-1 probabilities in a band
+    # about its threshold; "all": the uncalibrated stage 1, whose
+    # probabilities lie away from 0.5, so the gate check has teeth there
+    for key in (("bf16", "gated"), ("int8", "gated"), ("bf16", "all"),
+                ("int8", "all")):
+        check_stream(f"{key[0]} stream, {key[1]} mode", engines[key], audio,
+                     probs[key])
+
+    # ---- one emit: counts zeroed just before, read just after ----
+    engine = engines["bf16", "gated"]
+    stream = StreamingCascade(engine, chunk_windows=STREAM_CHUNK)
+    stream.warmup()
+    need = (STREAM_CHUNK - 1) * 8000 + 16000
+    if stream.feed(audio[:need - 1]):
+        raise AssertionError("emitted before the batch was complete")
+    zero_counts(A)
+    out = stream.feed(audio[need - 1: need])
+    launches = counts(A)
+    # --------------------------------------------------------------
+    n_gated = len(engine._gate_indices(np.stack([r.s1_probs for r in out])))
+    expected = 12 * (1 + (n_gated > 0))
+    others = {k: n for k, n in launches.items() if k != "mha_packed"}
+    log(f"[serve] one emit of {len(out)} windows ({n_gated} gated): "
+        f"mha_packed launches {launches['mha_packed']} (expected {expected}"
+        f" = 12 per stage per dispatched bucket); the other kernels {others}")
+    if len(out) != STREAM_CHUNK or launches["mha_packed"] != expected or any(
+            others.values()):
+        raise AssertionError("the emit's launches are not 12 mha_packed per "
+                             "stage per bucket")
+
+    result = {}
+    for key, buckets in ((("bf16", "all"), EMIT_BUCKETS),
+                         (("int8", "all"), (STREAM_CHUNK,))):
+        for b in buckets:
+            times = emit_ms(engines[key], b)
+            result[f"emit_{key[0]}_b{b}_ms"] = float(np.median(times))
+            log(f"[serve] emit latency, {key[0]} all mode, bucket {b}: "
+                f"median {np.median(times):.2f} ms over {EMIT_REPEATS} emits "
+                f"({[round(t, 2) for t in times]}), feed to fetched results, "
+                f"host clock; {smi}")
+
+    # mha_packed alone at the streaming buckets: kernel (CUDA events over
+    # 20 launches) against the wrapper's host path (host clock over the
+    # same 20 calls, before the device finishes)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for B in EMIT_BUCKETS:
+        q, k, v = (torch.randn(B, 1214, 768, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        reps = 20
+
+        def launches_20():
+            for _ in range(reps):
+                A.mha_packed(q, k, v, num_heads=12)
+
+        kernel_ms = median_ms(launches_20) / reps
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches_20()
+            host.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qh, kh, vh = (t.view(B, 1214, 12, 64).transpose(1, 2)
+                      for t in (q, k, v))
+        sdpa_ms = median_ms(lambda: sdpa(qh, kh, vh))
+        b = bound(B, 1214, 12, 64, 2)
+        result[f"b{B}_ms"], result[f"b{B}_host_ms"] = kernel_ms, float(
+            np.median(host))
+        result[f"b{B}_bound_ms"], result[f"b{B}_sdpa_ms"] = b["bound_ms"], \
+            sdpa_ms
+        log(f"[serve] mha_packed at ({B}, 1214, 768) bf16: kernel "
+            f"{kernel_ms:.4f} ms a launch (CUDA events over {reps}), the "
+            f"wrapper's host path {np.median(host):.4f} ms a call (host "
+            f"clock, median of 10 x {reps}); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), SDPA {sdpa_ms:.4f} ms; {smi}")
+    return result
+
+
+def read_lines(text: str) -> list:
+    return [json.loads(line) for line in text.splitlines() if line.strip()]
+
+
+def serve_summary_vs_infer(what: str, lines: list, infer_json: str) -> None:
+    windows = [l for l in lines if l["type"] == "window"]
+    summary = [l for l in lines if l["type"] == "summary"]
+    with open(infer_json) as f:
+        want = json.load(f)["per_file"]["file_0"]
+    if [w["index"] for w in windows] != list(range(want["num_windows"])) \
+            or len(summary) != 1:
+        raise AssertionError(f"{what}: {len(windows)} window lines, "
+                             f"{len(summary)} summaries")
+    p = np.array([w["stage1_probs"] for w in windows])
+    slack = int(near_gate(p, 0.5, ENGINE_TOL).sum())
+    got = {k: v for k, v in summary[0].items() if k != "type"}
+    compare_summary(f"{what}: serve summary vs infer_long_audio file_0",
+                    got, want, ENGINE_TOL, slack)
+
+
+def run_child(args: list, stdin: bytes | None = None,
+              timeout: float = 600) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-m", *args], input=stdin,
+                          capture_output=True, timeout=timeout, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {proc.returncode}:\n"
+                             f"{proc.stderr.decode()[-3000:]}")
+    return proc
+
+
+def serve_startup_rss(serve_args: list, pcm: bytes, out_path: str):
+    """Runs one serve child on stdin PCM: its RSS once warmed up (read
+    from /proc while it waits for input), and its output lines."""
+    import threading
+
+    ready, err_lines = threading.Event(), []
+    with open(out_path, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "zenker_audio_detection_tpu_torch.cli."
+             "serve", *serve_args], stdin=subprocess.PIPE, stdout=out,
+            stderr=subprocess.PIPE, cwd=ROOT)
+
+        def read_err():
+            for raw in proc.stderr:
+                err_lines.append(raw.decode(errors="replace"))
+                if b"warmed up; streaming" in raw:
+                    ready.set()
+
+        reader = threading.Thread(target=read_err, daemon=True)
+        reader.start()
+        try:
+            if not ready.wait(300):
+                raise AssertionError("serve child never warmed up:\n"
+                                     + "".join(err_lines)[-3000:])
+            with open(f"/proc/{proc.pid}/status") as f:
+                rss = next(int(line.split()[1]) / 1024.0 for line in f
+                           if line.startswith("VmRSS"))
+            proc.stdin.write(pcm)
+            proc.stdin.close()
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=10)
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}:\n" + "".join(err_lines))
+    with open(out_path) as f:
+        return rss, read_lines(f.read())
+
+
+def phase_serve_clis(A, C, ast_mod, torch, int8: dict, smi: str) -> dict:
+    """The serving CLIs on the card, at full width: cli.serve on phase 5's
+    exported stage directories and on their int8 exports against
+    cli.infer_long_audio on the same WAV; cli.serve_supervisor with
+    --rss-limit-mb under the child's startup RSS (a recycle after every
+    emitted batch) against an uninterrupted serve; cli.run_batch_2stage on
+    a fold of two patients against cli.infer_long_audio."""
+    from zenker_audio_detection_tpu_torch.audio import io as aio
+    from zenker_audio_detection_tpu_torch.cli import (infer_long_audio,
+                                                      run_batch_2stage)
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as train_loop
+
+    audio = int8["audio"]
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        s1, s2 = full_size_specs(C, ast_mod)
+        roots = {"f32": [], "int8": []}
+        for k, spec in enumerate((s1, s2)):
+            for kind, save in (("f32", convert.save_hf_model_dir),
+                               ("int8", convert.save_int8_model_dir)):
+                root = os.path.join(tmp, f"{kind}_stage{k + 1}")
+                save(spec.params, spec.config, root)
+                train_loop.save_feature_extractor_config(root, spec.mean,
+                                                         spec.std)
+                roots[kind].append(root)
+        sizes = {kind: sum(os.path.getsize(os.path.join(r, name))
+                           for r in rs for name in os.listdir(r))
+                 for kind, rs in roots.items()}
+        log(f"[serve] exported directories: f32 {sizes['f32'] / 1e6:.1f} MB,"
+            f" int8 {sizes['int8'] / 1e6:.1f} MB (two stages)")
+        wav = os.path.join(tmp, "rec.wav")
+        aio.write_wav(wav, audio / 32768.0, 16000)
+
+        for kind in ("f32", "int8"):
+            flag = ["--int8"] if kind == "int8" else []
+            model = ["--stage1-model-root", roots[kind][0],
+                     "--stage2-model-root", roots[kind][1]]
+            t0 = time.perf_counter()
+            proc = run_child(["zenker_audio_detection_tpu_torch.cli.serve",
+                              *model, *flag, "--input", wav,
+                              "--simulate-chunk-sec", "0.5"])
+            serve_s = time.perf_counter() - t0
+            out_json = os.path.join(tmp, f"infer_{kind}.json")
+            infer_long_audio.main(["--file-a", wav, "--file-b", wav, *model,
+                                   *flag, "--disable-cache", "--output-json",
+                                   out_json, "--show-first-n", "0"])
+            lines = read_lines(proc.stdout.decode())
+            serve_summary_vs_infer(f"serve {kind} dirs", lines, out_json)
+            log(f"[serve] cli.serve on the {kind} directories: {W} windows "
+                f"of a 0.5 s-chunked WAV in {serve_s:.1f} s (process start, "
+                f"model load and warmup included)")
+
+        # the supervisor: a recycle after every emitted batch
+        torch.cuda.empty_cache()
+        serve_args = ["--stage1-model-root", roots["f32"][0],
+                      "--stage2-model-root", roots["f32"][1],
+                      "--chunk-windows", str(STREAM_CHUNK)]
+        pcm = audio.tobytes()
+        rss, ref = serve_startup_rss(serve_args, pcm,
+                                     os.path.join(tmp, "uninterrupted.jsonl"))
+        limit = 0.9 * rss
+        t0 = time.perf_counter()
+        proc = run_child(["zenker_audio_detection_tpu_torch.cli."
+                          "serve_supervisor", "--rss-limit-mb", f"{limit:.0f}",
+                          "--prewarm-standby", "--", *serve_args], stdin=pcm)
+        sup_s = time.perf_counter() - t0
+        got = read_lines(proc.stdout.decode())
+        recycles = proc.stderr.decode().count("[supervisor] recycle #")
+        gw = [l for l in got if l["type"] == "window"]
+        rw = [l for l in ref if l["type"] == "window"]
+        if [w["index"] for w in gw] != list(range(W)) or len(rw) != W \
+                or recycles < 1 or got[-1]["type"] != "summary":
+            raise AssertionError(f"supervised stream: {len(gw)} windows, "
+                                 f"{recycles} recycles")
+        err = max(float(np.abs(np.subtract(g["stage1_probs"],
+                                           r["stage1_probs"])).max())
+                  for g, r in zip(gw, rw))
+        p = np.array([w["stage1_probs"] for w in rw])
+        slack = int(near_gate(p, 0.5, ENGINE_TOL).sum())
+        log(f"[serve] cli.serve_supervisor, --rss-limit-mb {limit:.0f} (0.9 "
+            f"x the child's startup RSS {rss:.0f} MB), --prewarm-standby: "
+            f"{recycles} recycles, windows 0..{W - 1} each once, stage-1 "
+            f"max abs err vs the uninterrupted serve {err:.3g} (tolerance "
+            f"{ENGINE_TOL}), {sup_s:.1f} s")
+        if not err <= ENGINE_TOL:
+            raise AssertionError(f"supervised windows differ: {err}")
+        compare_summary("supervised vs uninterrupted serve",
+                        {k: v for k, v in got[-1].items() if k != "type"},
+                        {k: v for k, v in ref[-1].items() if k != "type"},
+                        ENGINE_TOL, slack)
+        result.update(startup_rss_mb=rss, recycles=recycles)
+
+        # one fold of two patients through the batch driver
+        ids = os.path.join(tmp, "ids")
+        os.makedirs(ids)
+        with open(os.path.join(ids, "test_ids_fold1.txt"), "w") as f:
+            f.write("Zenker/P001\nHealthy/P002\n")
+        for pid, cls, lengths in (("P001", "Zenker", (20.0, 15.5)),
+                                  ("P002", "Healthy", (12.0, 9.5))):
+            d = os.path.join(tmp, "long", cls, pid)
+            os.makedirs(d)
+            for k, seconds in enumerate(lengths):
+                aio.write_wav(os.path.join(d, f"rec_{k}.wav"),
+                              seeded_audio(seconds, seed=30 + k) / 32768.0,
+                              16000)
+        model = ["--stage1-model-root", roots["f32"][0],
+                 "--stage2-model-root", roots["f32"][1]]
+        zero_counts(A)
+        batch = run_batch_2stage.main([
+            "--fold", "1", "--ids-root", ids, "--long-audio-root",
+            os.path.join(tmp, "long"), "--output-dir",
+            os.path.join(tmp, "batch"), "--disable-cache", *model])
+        batch_launches = A.mha_packed.launches
+        if batch != {"done": 2, "failed": 0, "skipped": 0}:
+            raise AssertionError(f"run_batch_2stage: {batch}")
+        for pid in ("P001", "P002"):
+            want = os.path.join(tmp, f"{pid}.json")
+            infer_long_audio.main([
+                "--patient-id", pid, "--long-audio-root",
+                os.path.join(tmp, "long"), *model, "--disable-cache",
+                "--output-json", want, "--show-first-n", "0"])
+            with open(want) as f:
+                want = json.load(f)
+            with open(os.path.join(tmp, "batch", f"{pid}_2stage.json")) as f:
+                got = json.load(f)
+            if got != want:
+                raise AssertionError(f"run_batch_2stage's {pid} JSON differs "
+                                     f"from infer_long_audio's")
+        log(f"[serve] run_batch_2stage, one fold of two patients: per-patient"
+            f" JSONs equal infer_long_audio's; mha_packed launches "
+            f"{batch_launches}")
+    return result
+
+
+def phase_serving(A, C, ast_mod, torch, smi: str) -> dict:
+    """Phase 8: int8 inference and live serving."""
+    t0 = time.perf_counter()
+    int8 = phase_int8(A, C, ast_mod, torch, smi)
+    result = {"rates": int8["rates"], "nbytes": int8["nbytes"]}
+    result.update(phase_stream(A, C, torch, int8, smi))
+    del int8["engines"]
+    torch.cuda.empty_cache()
+    result.update(phase_serve_clis(A, C, ast_mod, torch, int8, smi))
+    log(f"[serve] phase 8 (int8 and serving): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1674,6 +2297,9 @@ def main() -> int:
             r["ctas_per_sm"] = occupancy[r["name"]]
     phase_train_small_f32(ast_mod, torch)
     phase_train_loop(A, C, ast_mod, torch, smi)
+    serving = phase_serving(A, C, ast_mod, torch, smi)
+    record.update({f"stream_{k}": v for k, v in serving.items()
+                   if k.startswith("b")})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -83,16 +83,25 @@ def test_logits_match_hf_model(rng):
 
 
 def test_int8_model_dir_is_refused(tmp_path):
+    """A JAX int8 directory loads in the port with JAX's quantized leaves
+    (since int8 inference was ported), and the HF export refuses the int8
+    tree with JAX's message, in both packages."""
     import jax
 
     jcfg = jast.ASTConfig(**TINY)
     tree = jast.init_params(jax.random.PRNGKey(0), jcfg)
     jconvert.save_int8_model_dir(tree, jcfg, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A6"):
-        convert.load_hf_model_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A6"):
-        convert.params_from_jax(jax.tree.map(
-            np.asarray, jast.quantize_params(tree)))
+    params, cfg = convert.load_hf_model_dir(str(tmp_path))
+    assert cfg == ast_mod.ASTConfig(**TINY)
+    qtree = jax.tree.map(np.asarray, jast.quantize_params(tree))
+    _assert_same_tree(convert.params_to_numpy(params), qtree)
+    _assert_same_tree(convert.params_to_numpy(convert.params_from_jax(qtree)),
+                      qtree)
+    assert params["encoder"]["q"]["kernel_int8"].dtype == torch.int8
+    with pytest.raises(ValueError, match="int8-quantized"):
+        convert.to_hf_state_dict(params)
+    with pytest.raises(ValueError, match="int8-quantized"):
+        jconvert.to_hf_state_dict(qtree)
 
 
 def test_safetensors_matches_jax_reader(tmp_path):

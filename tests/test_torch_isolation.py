@@ -38,7 +38,19 @@ def test_port_imports_no_jax():
             "zenker_audio_detection_tpu_torch.analysis.cm_plots",
             "zenker_audio_detection_tpu_torch.cli.train_stage1",
             "zenker_audio_detection_tpu_torch.cli.train_stage2",
-            "zenker_audio_detection_tpu_torch.cli.compute_stats"} <= set(mods)
+            "zenker_audio_detection_tpu_torch.cli.compute_stats",
+            "zenker_audio_detection_tpu_torch.infer.streaming",
+            "zenker_audio_detection_tpu_torch.infer.plotting",
+            "zenker_audio_detection_tpu_torch.utils.profiling",
+            "zenker_audio_detection_tpu_torch.analysis.thresholds",
+            "zenker_audio_detection_tpu_torch.analysis.aggregate",
+            "zenker_audio_detection_tpu_torch.data.config",
+            "zenker_audio_detection_tpu_torch.cli.serve",
+            "zenker_audio_detection_tpu_torch.cli.serve_supervisor",
+            "zenker_audio_detection_tpu_torch.cli.run_batch_2stage",
+            "zenker_audio_detection_tpu_torch.cli.run_all_folds",
+            "zenker_audio_detection_tpu_torch.cli.aggregate_results"} <= set(
+                mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"
@@ -83,6 +95,72 @@ def test_cli_without_device_flag_needs_cuda(tmp_path):
         cli.main(["--file-a", str(a), "--file-b", str(b),
                   "--stage1-model-root", str(tmp_path),
                   "--stage2-model-root", str(tmp_path)])
+
+
+def _tiny_model_dirs(root):
+    """Two tiny stage directories exported by the port."""
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as train_loop
+
+    spec = _tiny_spec()
+    dirs = []
+    for name in ("s1", "s2"):
+        d = str(root / name)
+        convert.save_hf_model_dir(spec.params, spec.config, d)
+        train_loop.save_feature_extractor_config(d, 0.0, 1.0,
+                                                 max_length=128)
+        dirs.append(d)
+    return dirs
+
+
+def test_serve_child_imports_no_jax(tmp_path):
+    """A serve process (what the supervisor spawns) streams windows without
+    importing jax, optax, sklearn or the JAX package."""
+    dirs = _tiny_model_dirs(tmp_path)
+    code = (
+        "import atexit, runpy, sys\n"
+        "def report():\n"
+        "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                 ('jax', 'optax', 'sklearn',\n"
+        "                  'zenker_audio_detection_tpu'))\n"
+        "    print('BAD', bad, file=sys.stderr)\n"
+        "atexit.register(report)\n"
+        "sys.argv = ['serve', '--stage1-model-root', sys.argv[1],\n"
+        "            '--stage2-model-root', sys.argv[2], '--device', 'cpu',\n"
+        "            '--f32', '--chunk-windows', '2']\n"
+        "runpy.run_module('zenker_audio_detection_tpu_torch.cli.serve',\n"
+        "                 run_name='__main__')\n")
+    pcm = (np.sin(np.arange(16000 * 2) / 9.0) * 3000).astype(np.int16)
+    proc = subprocess.run([sys.executable, "-c", code, *dirs], cwd=REPO,
+                          input=pcm.tobytes(), capture_output=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr.decode()
+    lines = proc.stdout.decode().splitlines()
+    assert len(lines) == 3 + 1  # 3 windows and the summary
+    assert "BAD []" in proc.stderr.decode(), proc.stderr.decode()
+
+
+def test_serving_entry_points_without_device_need_cuda(tmp_path):
+    """serve and run_batch_2stage default to the card: without one they
+    raise, never carry on on the CPU."""
+    import io
+
+    from zenker_audio_detection_tpu_torch.cli import run_batch_2stage, serve
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    dirs = _tiny_model_dirs(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--stage1-model-root", dirs[0], "--stage2-model-root",
+                    dirs[1]], stdin_buffer=io.BytesIO(b""),
+                   stdout=io.StringIO())
+    (tmp_path / "test_ids_fold1.txt").write_text("Zenker/P1\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_batch_2stage.main(["--fold", "1", "--ids-root", str(tmp_path),
+                               "--long-audio-root", str(tmp_path),
+                               "--stage1-model-root", dirs[0],
+                               "--stage2-model-root", dirs[1],
+                               "--output-dir", str(tmp_path / "out")])
 
 
 def test_cpu_tensors_take_the_plain_version():

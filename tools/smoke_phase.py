@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/smoke_phase.py [--phases train_alone train loop]
+    python3 tools/smoke_phase.py [--phases train_alone train loop serving]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
 chip_smoke.py's main would but without the phases before them:
 `train_alone` (mha_packed_trainable alone at (16, 1214, 768)), `train`
-(the full-width training step of both routes, which logs its ms per step)
-and `loop` (the training loop, which logs its ms per step).
+(the full-width training step of both routes, which logs its ms per step),
+`loop` (the training loop, which logs its ms per step) and `serving`
+(phase 8: int8 inference, streaming and the serving CLIs, which logs
+windows/s, emit latency and mha_packed at the streaming buckets).
 After each phase it prints the caching allocator's counters (device
 allocations and frees, allocation retries, reserved and allocated GB), so
 two checkouts' phases can be compared alone and after each other in one
@@ -24,7 +26,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("train_alone", "train", "loop")
+PHASES = ("train_alone", "train", "loop", "serving")
 
 
 def main() -> int:
@@ -54,8 +56,11 @@ def main() -> int:
             chip_smoke.phase_train_alone(A, torch)
         elif phase == "train":
             chip_smoke.phase_train(A, ast_mod, torch)
-        else:
+        elif phase == "loop":
             chip_smoke.phase_train_loop(A, C, ast_mod, torch, smi)
+        else:
+            print(chip_smoke.phase_serving(A, C, ast_mod, torch, smi),
+                  flush=True)
         stats = torch.cuda.memory_stats()
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s; allocator "
               f"{stats.get('num_device_alloc')} device allocations, "

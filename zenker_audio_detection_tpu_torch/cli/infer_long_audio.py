@@ -3,10 +3,11 @@
 Port of the JAX package's `cli/infer_long_audio.py`: the same flags and JSON
 output schema (outputs/<pid>_2stage.json) and the same gating semantics,
 served by the PyTorch engine. Differences: `--attention-impl` takes
-`kernel` (the CUDA kernel, default) or `torch` (its plain version), and
-`--device` (default `cuda`) says where the engine runs. `--num-devices`,
-`--num-slices`, `--int8`, `--plot`, `--plot-dir` and `--trace-dir` are not
-ported yet (ROADMAP).
+`kernel` (the CUDA kernel, default) or `torch` (its plain version),
+`--device` (default `cuda`) says where the engine runs, and `--trace-dir`
+writes a `torch.profiler` Chrome trace. `--num-devices` and `--num-slices`
+(sharding over several devices) are not ported yet: they raise
+(ROADMAP A10).
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.infer_long_audio --help
 """
@@ -16,6 +17,7 @@ import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..audio import io as aio
@@ -52,6 +54,8 @@ def build_arg_parser():
     ap.add_argument("--stage2-argmax", action="store_true")
     ap.add_argument("--output-json")
     ap.add_argument("--show-first-n", type=int, default=5)
+    ap.add_argument("--plot", action="store_true")
+    ap.add_argument("--plot-dir", default="outputs")
     ap.add_argument("--cache-dir", "--feature-cache-dir", dest="cache_dir",
                     default=os.path.join(".cache", "ast_features"),
                     help="frame-cache dir (reference name: "
@@ -66,6 +70,17 @@ def build_arg_parser():
                          "torch: its plain PyTorch version")
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="not ported yet (ROADMAP A10): raises")
+    ap.add_argument("--num-slices", type=int, default=None,
+                    help="not ported yet (ROADMAP A10): raises")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 encoder GEMMs (per-channel weights, per-token "
+                         "activations); probabilities drift O(1e-2): "
+                         "recalibrate thresholds on validation")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the "
+                         "inference to this directory")
     return ap
 
 
@@ -94,12 +109,27 @@ def resolve_model_roots(args) -> tuple[str, str]:
     return args.stage1_model_root, args.stage2_model_root
 
 
+def load_stage_specs(args) -> tuple[C.StageSpec, C.StageSpec]:
+    root1, root2 = resolve_model_roots(args)
+    return (load_stage_spec(root1, ("Idle", "Swallow")),
+            load_stage_spec(root2, ("Healthy", "Zenker")))
+
+
+def refuse_sharding(args) -> None:
+    """--num-devices / --num-slices shard the window chunks over several
+    devices in the JAX package; the port has no such engine yet."""
+    for flag in ("num_devices", "num_slices"):
+        if getattr(args, flag, None) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')}: sharding inference over "
+                "several devices is not ported yet (ROADMAP A10)")
+
+
 def build_engine(args) -> tuple[C.TwoStageEngine, str, str]:
+    refuse_sharding(args)
     # resolve the device before loading ~700 MB of weights for nothing
     device = C.resolve_device(args.device)
-    root1, root2 = resolve_model_roots(args)
-    spec1 = load_stage_spec(root1, ("Idle", "Swallow"))
-    spec2 = load_stage_spec(root2, ("Healthy", "Zenker"))
+    spec1, spec2 = load_stage_specs(args)
     config = C.CascadeConfig(
         window_sec=args.window_sec,
         hop_sec=args.hop_sec,
@@ -113,8 +143,10 @@ def build_engine(args) -> tuple[C.TwoStageEngine, str, str]:
         refresh_cache=args.refresh_cache,
         stage2_mode=args.stage2_mode,
         attention_impl=args.attention_impl,
+        int8=args.int8,
     )
-    return C.TwoStageEngine(spec1, spec2, config, device=device), root1, root2
+    return (C.TwoStageEngine(spec1, spec2, config, device=device),
+            args.stage1_model_root, args.stage2_model_root)
 
 
 def resolve_files(args) -> list[str]:
@@ -136,6 +168,7 @@ def run_patient(engine: C.TwoStageEngine, files, args,
               "disjoint with gaps.")
 
     per_file = {}
+    plot_assets = []
     # decode both recordings in parallel; mono-PCM16@16k files stay int16 —
     # the engine scales them on the device
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -150,6 +183,14 @@ def run_patient(engine: C.TwoStageEngine, files, args,
                   f"{res['_s1_preds'][:first_n].tolist()}")
         per_file[f"file_{idx}"] = {
             k: v for k, v in res.items() if not k.startswith("_")}
+        if args.plot:
+            # the float32 copy of a full recording is ~230 MB/hour: only
+            # made when a plot consumes it
+            plot_audio = (audio.astype(np.float32) / 32768.0
+                          if audio.dtype == np.int16 else audio)
+            plot_assets.append((plot_audio, res["_s1_preds"],
+                                res["_stage2_aligned_classes"],
+                                f"file_{idx}", path))
 
     output = C.build_patient_output(engine.config, files, per_file,
                                     stage1_root, stage2_root)
@@ -166,6 +207,14 @@ def run_patient(engine: C.TwoStageEngine, files, args,
         fsio.atomic_json_dump(output, args.output_json, indent=2)
         print(f"Saved JSON: {args.output_json}")
 
+    if args.plot:
+        from ..infer import plotting
+
+        plotting.plot_two_stage(plot_assets, args.window_sec, args.hop_sec,
+                                args.plot_dir, args.patient_id,
+                                cached_name=getattr(args, "plot_cached_name",
+                                                    False))
+
     print("\n=== Aggregate (Two-Stage) Summary ===")
     print(json.dumps(aggregate, indent=2))
     return output
@@ -176,7 +225,11 @@ def main(argv=None):
     files = resolve_files(args)
     print(f"Using files:\n  A: {files[0]}\n  B: {files[1]}")
     engine, s1_root, s2_root = build_engine(args)
-    return run_patient(engine, files, args, s1_root, s2_root)
+
+    from ..utils import profiling
+
+    with profiling.trace(args.trace_dir):
+        return run_patient(engine, files, args, s1_root, s2_root)
 
 
 if __name__ == "__main__":

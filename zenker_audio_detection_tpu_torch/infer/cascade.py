@@ -77,6 +77,11 @@ class CascadeConfig:
     # "kernel": attention through the hand-written CUDA kernel
     # (ops/attention.py:mha_packed); "torch": its plain PyTorch version
     attention_impl: str = "kernel"
+    # int8 inference: the encoder's dense layers run int8 x int8 -> int32
+    # with per-channel weight and per-token activation quantization
+    # (models/ast.py:quantize_params). Probabilities shift O(1e-2):
+    # recalibrate the gate thresholds on validation data when enabled.
+    int8: bool = False
 
 
 def window_starts(num_samples: int, window_sec: float, hop_sec: float,
@@ -114,12 +119,18 @@ class TwoStageEngine:
                              f"{ast_mod.ATTENTION_IMPLS}, got "
                              f"{config.attention_impl!r}")
         self.device = resolve_device(device)
+        if config.int8:
+            stage1 = dataclasses.replace(
+                stage1, params=ast_mod.quantize_params(stage1.params))
+            stage2 = dataclasses.replace(
+                stage2, params=ast_mod.quantize_params(stage2.params))
         self.stage1 = stage1
         self.stage2 = stage2
         self.config = config
         win = int(config.window_sec * SAMPLING_RATE)
         hop = int(config.hop_sec * SAMPLING_RATE)
         self._win = win
+        self._hop = hop
         self._frames_per_window = F.num_frames(win)
         if self._frames_per_window <= 0:
             raise ValueError("window shorter than one fbank frame")
@@ -154,9 +165,6 @@ class TwoStageEngine:
         kind "samples": gather raw windows and fbank them (non-grid hops).
         The starts are in range by construction (the buffers are padded to
         cover the last window), so the gathers need no check here."""
-        spec = self.stage1 if stage == 1 else self.stage2
-        params = self._params1 if stage == 1 else self._params2
-        mean, denom = self._norm[stage]
         fpw = self._frames_per_window
         if kind == "frames":
             offs = torch.arange(fpw, device=self.device)
@@ -165,7 +173,16 @@ class TwoStageEngine:
             offs = torch.arange(self._win, device=self.device)
             raw = F.logmel_frames(device_buf[starts[:, None] + offs[None, :]],
                                   fpw)
-        # pad-then-normalize (HF order): pad rows become (0-mean)/denom
+        return self._classify(stage, raw)
+
+    def _classify(self, stage: int, raw: torch.Tensor) -> torch.Tensor:
+        """Softmax probabilities (C, 2) of one stage on (C, frames, 128)
+        raw log-mel windows: pad-then-normalize (HF order: pad rows become
+        (0 - mean) / (2 std)), the AST, the softmax. The offline chunks and
+        the streaming ring (infer/streaming.py) share it."""
+        spec = self.stage1 if stage == 1 else self.stage2
+        params = self._params1 if stage == 1 else self._params2
+        mean, denom = self._norm[stage]
         raw = nnf.pad(raw, (0, 0, 0, spec.config.max_length - raw.shape[-2]))
         feats = (raw - mean) / denom
         logits = ast_mod.forward(params, feats, spec.config,

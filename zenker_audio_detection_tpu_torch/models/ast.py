@@ -33,6 +33,11 @@ counterpart of the JAX "pallas" route: Hopper kernels forward and
 backward, `mha_packed` when no gradient is taken) or the plain version
 ("torch", the counterpart of "xla").
 
+int8 inference is the JAX package's: `quantize_params` turns the encoder's
+six dense kernels into per-output-channel int8 leaves, and `_dense`
+dispatches such a leaf to `_dense_int8` (per-token activation quantization
+and an int8 product, `torch._int_mm`).
+
 For training, `remat` recomputes each block's forward in the backward
 (`torch.utils.checkpoint`), as the JAX package's `jax.checkpoint` does, and
 `reinit_head` and `adapt_max_length` are the JAX functions of those names.
@@ -54,6 +59,8 @@ from ..utils.precision import full_f32
 Params = dict[str, Any]
 ATTENTION_IMPLS = ("kernel", "torch")
 REMAT_POLICIES = ("full", "dots_no_batch")
+# the encoder dense layers `quantize_params` turns into int8
+INT8_DENSE = ("q", "k", "v", "attn_out", "fc1", "fc2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,12 +215,64 @@ def adapt_max_length(params: Params, config: ASTConfig,
     return new_params, new_config
 
 
+def quantize_params(params: Params) -> Params:
+    """int8 inference weights, the JAX function of this name.
+
+    Per-output-channel symmetric int8 quantization of the encoder's six
+    dense kernels (q, k, v, attn_out, fc1, fc2), in numpy as the JAX
+    package does it: each {"kernel", "bias"} becomes {"kernel_int8",
+    "scale", "bias"} with scale = max |w| over the input axis / 127
+    ((L, 1, out) for the stacked (L, in, out) kernels); `_dense` dispatches
+    on the key. Activations are quantized per token at run time
+    (`_dense_int8`). Everything else stays as it is. Idempotent: a leaf
+    that is already quantized passes through. The leaves come back as CPU
+    tensors."""
+
+    def quant(leaf_dict):
+        if "kernel_int8" in leaf_dict:
+            return leaf_dict
+        w = _numpy(leaf_dict["kernel"])
+        scale = np.max(np.abs(w), axis=-2, keepdims=True) / 127.0
+        scale = np.maximum(scale, 1e-12)
+        w_q = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+        return {"kernel_int8": torch.from_numpy(w_q),
+                "scale": torch.from_numpy(scale.astype(np.float32)),
+                "bias": torch.from_numpy(_numpy(leaf_dict["bias"]))}
+
+    new = dict(params)
+    enc = dict(params["encoder"])
+    for name in INT8_DENSE:
+        enc[name] = quant(enc[name])
+    new["encoder"] = enc
+    return new
+
+
+def _numpy(x) -> np.ndarray:
+    """A tensor or array leaf as an f32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float32)
+
+
 def cast_params(params: Params, dtype: torch.dtype, device) -> Params:
     """Params on `device`, with every tensor the forward pass casts to the
     compute dtype cast once here; LayerNorm parameters and the head stay in
-    their f32 (the forward pass reads them in f32)."""
+    their f32 (the forward pass reads them in f32). An int8 leaf
+    ({"kernel_int8", "scale", "bias"}) keeps its int8 kernel and its f32
+    scale and bias, which `_dense_int8` reads in f32; the kernel of each
+    layer is laid out column-major (same shape and values): on an H100
+    `torch._int_mm` takes a row-major second operand too, but runs 4-5x
+    slower with it (`chip_smoke.py` phase 8 times both)."""
 
     def walk(tree, keep_f32):
+        if "kernel_int8" in tree:
+            w = torch.as_tensor(tree["kernel_int8"]).to(device=device,
+                                                        dtype=torch.int8)
+            return {"kernel_int8": w.transpose(-1, -2).contiguous()
+                    .transpose(-1, -2),
+                    **{k: torch.as_tensor(tree[k]).to(device=device,
+                                                      dtype=torch.float32)
+                       for k in ("scale", "bias")}}
         out = {}
         for name, leaf in tree.items():
             f32 = keep_f32 or name.startswith("ln") or name == "head"
@@ -235,24 +294,56 @@ def _layer_norm(x, scale, bias, eps):
     return y.to(x.dtype)
 
 
-def _dense(x, kernel, bias):
+def _dense(x, p):
+    if "kernel_int8" in p:
+        return _dense_int8(x, p)
     # the JAX order: round the f32-accumulated product, then add the bias
-    return torch.matmul(x, kernel.to(x.dtype)) + bias.to(x.dtype)
+    return torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
+
+
+def quantize_tokens(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 quantization of activations, the JAX
+    function's order: f32 max |x| over the last axis / 127 (at least
+    1e-12), then round half to even of x / scale, clipped to +-127.
+    Returns (scale (..., 1) f32, x_q int8). The division by 127 divides by
+    a 0-d tensor on x's device: on the card PyTorch turns a division by a
+    Python number into a product with its rounded reciprocal, which is an
+    ulp off the quotient for some inputs, and would move the scales off
+    the CPU's and JAX's."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s_x = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+    x_q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+    return s_x, x_q
+
+
+def _dense_int8(x, p):
+    """Dynamic per-token activation quantization (`quantize_tokens`), an
+    int8 x int8 -> int32 product and the rescale y * (s_x * scale) + bias
+    in f32, cast to x's dtype, in the JAX function's order. The product is
+    `torch._int_mm` (the JAX package leaves it to XLA's int8 matmul); on
+    the card it takes more than 16 rows and K, N multiples of 8, and raises
+    on anything else."""
+    s_x, x_q = quantize_tokens(x)
+    w = p["kernel_int8"]
+    y = torch._int_mm(x_q.reshape(-1, x_q.shape[-1]), w).float()
+    y = y.reshape(*x.shape[:-1], w.shape[-1])
+    y = y * (s_x * p["scale"].float())
+    return (y + p["bias"].float()).to(x.dtype)
 
 
 def _attention(x, lp, config: ASTConfig, impl: str):
-    B, S, H = x.shape
     nh = config.num_attention_heads
-    q = _dense(x, lp["q"]["kernel"], lp["q"]["bias"])
-    k = _dense(x, lp["k"]["kernel"], lp["k"]["bias"])
-    v = _dense(x, lp["v"]["kernel"], lp["v"]["bias"])
+    q = _dense(x, lp["q"])
+    k = _dense(x, lp["k"])
+    v = _dense(x, lp["v"])
     if impl == "kernel":
         # Hopper kernels forward and backward, as the JAX "pallas" route
         # calls its custom VJP
         ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
     else:
         ctx = attn_ops.mha_packed_reference(q, k, v, nh)
-    return _dense(ctx, lp["attn_out"]["kernel"], lp["attn_out"]["bias"])
+    return _dense(ctx, lp["attn_out"])
 
 
 def _block(x, lp, config: ASTConfig, impl: str):
@@ -261,9 +352,9 @@ def _block(x, lp, config: ASTConfig, impl: str):
     h = _layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
     x = x + _attention(h, lp, config, impl)
     h = _layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
-    h = _dense(h, lp["fc1"]["kernel"], lp["fc1"]["bias"])
+    h = _dense(h, lp["fc1"])
     h = nnf.gelu(h.float(), approximate="none").to(x.dtype)
-    return x + _dense(h, lp["fc2"]["kernel"], lp["fc2"]["bias"])
+    return x + _dense(h, lp["fc2"])
 
 
 def patch_embed(params: Params, input_values: torch.Tensor,

@@ -14,8 +14,11 @@ The port's parameters are that pytree with torch leaves, except the patch
 kernel, which is OIHW again for `conv2d`: `params_from_jax` and
 `params_to_numpy` are the one place that decision lives.
 
-int8 model directories (`model_int8.safetensors`) are not supported yet
-(ROADMAP item A6): loading one raises `NotImplementedError`.
+int8 model directories are the JAX package's format: `model_int8.safetensors`
+holds the quantized JAX pytree (`models.ast.quantize_params`) flattened to
+dotted keys, int8 kernels as I8, and `config.json` carries a
+`"zenker_int8": true` marker. A directory written by either package loads
+in the other.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.fsio import load_json_object
-from .ast import ASTConfig, Params
+from .ast import ASTConfig, Params, quantize_params
 
 _PREFIX = "audio_spectrogram_transformer."
 _INT8_FILE = "model_int8.safetensors"
@@ -291,6 +294,12 @@ def _jax_tree_from_hf(sd: Mapping[str, Any], config: ASTConfig) -> dict:
 def _hf_from_jax_tree(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """Inverse of `_jax_tree_from_hf` (float32 numpy tensors)."""
     enc = params["encoder"]
+    if "kernel_int8" in enc.get("q", {}):
+        # fail with intent instead of a bare KeyError('kernel') mid-export
+        raise ValueError(
+            "params are int8-quantized ({kernel_int8, scale} leaves); an HF "
+            "f32 state dict cannot represent them — use save_int8_model_dir "
+            "(or reload the f32 source checkpoint) instead")
     L = np.asarray(enc["ln1"]["scale"]).shape[0]
     sd: dict[str, np.ndarray] = {}
     p = _PREFIX
@@ -335,18 +344,11 @@ def _hf_from_jax_tree(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
 # --------------------------------------------------------------------------
 
 
-def _int8_error(where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{where} holds int8-quantized encoder weights; int8 inference is "
-        f"not ported yet (ROADMAP item A6)")
-
-
 def params_from_jax(tree: Mapping[str, Any]) -> Params:
-    """The JAX package's parameter pytree (numpy or array leaves) -> the
-    port's parameters: torch tensors on the CPU, same nesting and dtypes,
-    with the patch kernel moved from HWIO to OIHW."""
-    if "kernel_int8" in tree["encoder"]["q"]:
-        raise _int8_error("the parameter tree")
+    """The JAX package's parameter pytree (numpy or array leaves, f32 or
+    int8-quantized) -> the port's parameters: torch tensors on the CPU,
+    same nesting and dtypes, with the patch kernel moved from HWIO to
+    OIHW."""
 
     def walk(node):
         return {k: walk(v) if isinstance(v, Mapping)
@@ -389,7 +391,10 @@ def to_hf_state_dict(params: Params) -> dict[str, np.ndarray]:
 
 
 def load_hf_model_dir(model_dir: str) -> tuple[Params, ASTConfig]:
-    """Load an HF model directory (config.json + safetensors/bin)."""
+    """Load an HF model directory (config.json + safetensors/bin), or an
+    int8 directory (`model_int8.safetensors`, written by
+    `save_int8_model_dir` of either package): its params carry the
+    quantized encoder leaves that `models.ast._dense` dispatches on."""
     config_path = os.path.join(model_dir, "config.json")
     config_dict = load_json_object(config_path, "model config")
     try:
@@ -397,8 +402,10 @@ def load_hf_model_dir(model_dir: str) -> tuple[Params, ASTConfig]:
     except ValueError as e:
         raise ValueError(f"{config_path}: {e}") from e
 
-    if os.path.exists(os.path.join(model_dir, _INT8_FILE)):
-        raise _int8_error(f"{model_dir} ({_INT8_FILE})")
+    int8_path = os.path.join(model_dir, _INT8_FILE)
+    if os.path.exists(int8_path):
+        tree = _unflatten_tree(read_safetensors(int8_path))
+        return params_from_jax(tree), config
 
     st = os.path.join(model_dir, "model.safetensors")
     bin_path = os.path.join(model_dir, "pytorch_model.bin")
@@ -439,15 +446,36 @@ def _hf_config_dict(config: ASTConfig,
     }
 
 
+def _write_config_json(hf_config: dict, model_dir: str) -> None:
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(hf_config, f, indent=2, sort_keys=True)
+
+
 def save_hf_model_dir(params: Params, config: ASTConfig, model_dir: str,
                       id2label: Mapping[int, str] | None = None) -> None:
     """Export params as an HF-compatible model directory."""
     os.makedirs(model_dir, exist_ok=True)
-    with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(_hf_config_dict(config, id2label), f, indent=2,
-                  sort_keys=True)
+    _write_config_json(_hf_config_dict(config, id2label), model_dir)
     write_safetensors(to_hf_state_dict(params),
                       os.path.join(model_dir, "model.safetensors"))
+
+
+def save_int8_model_dir(params: Params, config: ASTConfig, model_dir: str,
+                        id2label: Mapping[int, str] | None = None) -> None:
+    """Export an int8-quantized model directory, the JAX package's format.
+
+    Quantizes the encoder's dense kernels (`models.ast.quantize_params`,
+    idempotent) and writes `model_int8.safetensors`, the JAX pytree
+    flattened to dotted keys with the kernels as I8, and `config.json` in
+    the HF shape plus a `"zenker_int8": true` marker. No HF
+    `model.safetensors` is written: quantization is lossy, so the format
+    is this system's own."""
+    os.makedirs(model_dir, exist_ok=True)
+    hf_config = _hf_config_dict(config, id2label)
+    hf_config["zenker_int8"] = True
+    _write_config_json(hf_config, model_dir)
+    write_safetensors(_flatten_tree(params_to_numpy(quantize_params(params))),
+                      os.path.join(model_dir, _INT8_FILE))
 
 
 def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
