@@ -109,7 +109,24 @@ fails the run loudly:
      the same WAV, cli.serve_supervisor with --rss-limit-mb under the
      child's startup RSS (a recycle after every emitted batch) against an
      uninterrupted serve, and cli.run_batch_2stage on a fold of two
-     patients against cli.infer_long_audio.
+     patients against cli.infer_long_audio;
+  9. audio I/O and single-card parallel training: audio.native built at
+     first use from native/*.cpp into build/native/ (the phase fails when
+     it is not in use); ops.resample.resample_torch on the card against
+     resample_golden.npz and against the host resampler on 600 s of seeded
+     audio at 44.1 and 48 kHz, timed (CUDA events) beside the host and
+     native resamplers; the native load_audio against the Python path on
+     int16 stereo 44.1 kHz and f32 48 kHz WAVs, the native vocoder against
+     the numpy one. Then train.loop.run_cross_validation over five folds of
+     phase 7's recipe with fold_parallel (full width, batch 16, bf16, remat,
+     the "torch" attention, one epoch), counts zeroed just before and read
+     just after (no attention kernel launches on this path): ms per
+     vmapped step (median of steps 2-4, ending in the host read of the
+     losses) beside phase 7's sequential ms/step and its ratio to 5x, peak
+     memory, each fold's first-step loss against its own non-vmapped
+     forward, every fold's artifacts; train.trial_parallel on fold 1 with
+     three trials (ms/step, peak memory); and at a small f32 config both
+     against the sequential trainer (1e-4).
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -1450,42 +1467,45 @@ def check_occupancy(A) -> dict:
     return found
 
 
-def make_train_fold(root: str, seed: int = 0) -> str:
-    """A fold of seeded one-second WAVs in the trainers' data layout
+def make_train_fold(root: str, seed: int = 0, folds=(1,)) -> str:
+    """Folds of seeded one-second WAVs in the trainers' data layout
     (tests/test_train_loop.py:33-61): class 0 quiet noise, class 1 loud
-    noise; {train,val,test}_{x,y}_fold1.npy under <root>/data."""
+    noise; {train,val,test}_{x,y}_fold<k>.npy under <root>/data."""
     from zenker_audio_detection_tpu_torch.audio import io as aio
 
     rng = np.random.default_rng(seed)
     data = os.path.join(root, "data")
     os.makedirs(data)
-    for split, n in (("train", LOOP_TRAIN_PER_CLASS),
-                     ("val", LOOP_EVAL_PER_CLASS),
-                     ("test", LOOP_EVAL_PER_CLASS)):
-        xs, ys = [], []
-        for i in range(n):
-            for label in (0, 1):
-                d = os.path.join(root, "wav", split,
-                                 "Healthy" if label else "Idle",
-                                 f"P{label}{i:02d}")
-                os.makedirs(d, exist_ok=True)
-                path = os.path.join(d, f"c{i}.wav")
-                w = rng.standard_normal(16000) * (0.5 if label else 0.002)
-                aio.write_wav(path, w.astype(np.float32), 16000,
-                              dtype="float32")
-                xs.append(path)
-                ys.append(label)
-        np.save(os.path.join(data, f"{split}_x_fold1.npy"),
-                np.asarray(xs, dtype=object))
-        np.save(os.path.join(data, f"{split}_y_fold1.npy"), np.asarray(ys))
+    for fold in folds:
+        for split, n in (("train", LOOP_TRAIN_PER_CLASS),
+                         ("val", LOOP_EVAL_PER_CLASS),
+                         ("test", LOOP_EVAL_PER_CLASS)):
+            xs, ys = [], []
+            for i in range(n):
+                for label in (0, 1):
+                    d = os.path.join(root, "wav", f"fold{fold}", split,
+                                     "Healthy" if label else "Idle",
+                                     f"P{label}{i:02d}")
+                    os.makedirs(d, exist_ok=True)
+                    path = os.path.join(d, f"c{i}.wav")
+                    w = rng.standard_normal(16000) * (0.5 if label
+                                                      else 0.002)
+                    aio.write_wav(path, w.astype(np.float32), 16000,
+                                  dtype="float32")
+                    xs.append(path)
+                    ys.append(label)
+            np.save(os.path.join(data, f"{split}_x_fold{fold}.npy"),
+                    np.asarray(xs, dtype=object))
+            np.save(os.path.join(data, f"{split}_y_fold{fold}.npy"),
+                    np.asarray(ys))
     return data
 
 
-def check_fold_artifacts(root: str, num_epochs: int) -> None:
+def check_fold_artifacts(root: str, num_epochs: int, fold: int = 1) -> None:
     """The artifact contract of tests/test_train_loop.py:94-113."""
     from zenker_audio_detection_tpu_torch.train import loop as L
 
-    fold_dir = os.path.join(root, "fold1")
+    fold_dir = os.path.join(root, f"fold{fold}")
     best = os.path.join(fold_dir, "best")
     need = [os.path.join(best, name) for name in (
         "model.safetensors", "config.json", "preprocessor_config.json",
@@ -1504,11 +1524,12 @@ def check_fold_artifacts(root: str, num_epochs: int) -> None:
                              f"checkpoints {cks}")
 
 
-def phase_train_loop(A, C, ast_mod, torch, smi: str) -> None:
+def phase_train_loop(A, C, ast_mod, torch, smi: str) -> float:
     """The training loop on the card: compute_stats, then
     run_cross_validation at full width (the path, counts zeroed just before
     and read just after), its artifacts, its best directory in the engine;
-    then bitwise resume at a small f32 config."""
+    then bitwise resume at a small f32 config. Returns the loop's ms per
+    step (median of steps 2 on)."""
     import dataclasses
 
     from zenker_audio_detection_tpu_torch.data import stats as S
@@ -1648,6 +1669,7 @@ def phase_train_loop(A, C, ast_mod, torch, smi: str) -> None:
             f"{[h['loss'] for h in histories[0]]})")
         if not (same and metrics_same and histories[0] == histories[1]):
             raise AssertionError("--resume on the card is not a straight run")
+    return float(np.median(step_ms[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -2246,6 +2268,328 @@ def phase_serving(A, C, ast_mod, torch, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: audio I/O and single-card fold- and trial-parallel training
+# ---------------------------------------------------------------------------
+
+# the device resampler against the golden and the host resampler
+# (tests/test_golden.py's device bound); the native loader and vocoder
+# against the Python oracles (tests/test_native_audio.py)
+RESAMPLE_TOL = 2e-5
+NATIVE_LOAD_TOL = 2e-6
+VOCODER_TOL = 1e-8
+RESAMPLE_SECONDS = 600.0
+RESAMPLE_RATES = (44100, 48000)
+# the five CV folds of the paper's users, phase 7's fold recipe each
+PARALLEL_FOLDS = (1, 2, 3, 4, 5)
+# first-step loss of a vmapped fold against its own non-vmapped forward,
+# bf16 (the attention tolerance of bf16)
+FIRST_LOSS_TOL = 2e-2
+# fold- and trial-parallel against the sequential trainer at f32 on the
+# card (the CPU tests' bound)
+PARALLEL_TOL = 1e-4
+TRIALS = (  # tests/test_trial_parallel.py:60-67
+    dict(learning_rate=1e-3, weight_decay=0.01, adam_beta2=0.98,
+         warmup_ratio=0.1, focal_gamma=0.0, label_smoothing=0.0),
+    dict(learning_rate=3e-4, weight_decay=0.05, adam_beta2=0.95,
+         warmup_ratio=0.25, focal_gamma=2.0, label_smoothing=0.1),
+    dict(learning_rate=2e-3, weight_decay=0.0, adam_beta2=0.999,
+         warmup_ratio=0.0, focal_gamma=1.0, label_smoothing=0.07),
+)
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Median host-clock ms of `fn` over `iters` calls."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_audio_io(torch, smi: str) -> None:
+    """A8 on the card: the native library built at first use and in use;
+    resample_torch against the golden and the host resampler on 600 s of
+    audio, timed beside the host and native resamplers; the native loader
+    and vocoder against the Python paths."""
+    from zenker_audio_detection_tpu_torch.audio import io as aio
+    from zenker_audio_detection_tpu_torch.audio import native
+    from zenker_audio_detection_tpu_torch.data import augment as aug
+    from zenker_audio_detection_tpu_torch.ops import resample as R
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native audio library did not build")
+    log(f"[audio] native library in use: build/native/"
+        f"{native.library_path().name}, built from native/*.cpp at its first "
+        f"use in this process (available() {time.perf_counter() - t0:.1f} "
+        f"s here)")
+
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  "resample_golden.npz"))
+    for case in ("noise_48k_to_16k", "noise_44k1_to_16k", "tone_48k_to_16k"):
+        orig, new = (int(r) for r in golden[f"{case}_rates"])
+        got = R.resample_torch(torch.from_numpy(golden[f"{case}_in"]).cuda(),
+                               orig, new).cpu().numpy()
+        err = float(np.abs(got - golden[f"{case}_out"]).max())
+        log(f"[audio] resample_torch {case}: max abs err {err:.3g} against "
+            f"the golden (tolerance {RESAMPLE_TOL})")
+        if not (got.shape == golden[f"{case}_out"].shape
+                and err <= RESAMPLE_TOL):
+            raise AssertionError(f"resample_torch {case}: {err}")
+
+    rng = np.random.default_rng(9)
+    for sr in RESAMPLE_RATES:
+        x = (0.1 * rng.standard_normal(int(sr * RESAMPLE_SECONDS))).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        host = R.resample(x, sr, 16000)
+        host_s = time.perf_counter() - t0
+        nat = native.resample(x, sr, 16000)
+        xd = torch.from_numpy(x).cuda()
+        dev = R.resample_torch(xd, sr, 16000)
+        err = float(np.abs(dev.cpu().numpy() - host).max())
+        nat_err = float(np.abs(nat - host).max())
+        dev_ms = median_ms(lambda: R.resample_torch(xd, sr, 16000))
+        nat_ms = host_ms(lambda: native.resample(x, sr, 16000))
+        g = math.gcd(sr, 16000)
+        up, down = 16000 // g, sr // g
+        kw = R._design_kernel(down, up)[0].shape[1]
+        work = roofline(2.0 * len(host) * kw, 4.0 * (len(x) + len(host)),
+                        PEAK_F32_FLOPS)
+        log(f"[audio] {RESAMPLE_SECONDS:.0f} s at {sr} Hz -> 16 kHz "
+            f"({len(x)} -> {len(host)} samples, {up}/{down}, kernel width "
+            f"{kw}): resample_torch {dev_ms:.4f} ms on the card (CUDA "
+            f"events, input on the card; bound {work['bound_ms']:.4f} ms by "
+            f"{work['bound_by']}: {work['text']}), native audioio_resample "
+            f"{nat_ms:.1f} ms, host numpy resample {host_s * 1e3:.1f} ms "
+            f"(host clock); max abs err {err:.3g} card vs host (tolerance "
+            f"{RESAMPLE_TOL}), native vs host {nat_err:.3g}; {smi}")
+        if not (dev.shape == (len(host),) and err <= RESAMPLE_TOL
+                and nat_err <= NATIVE_LOAD_TOL):
+            raise AssertionError(f"resample at {sr} Hz: card {err}, native "
+                                 f"{nat_err}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for sr, dtype, channels in ((44100, "int16", 2), (48000, "float32",
+                                                          1)):
+            x = np.clip(rng.standard_normal((channels, sr * 3)) * 0.2, -0.9,
+                        0.9).astype(np.float32)
+            path = os.path.join(tmp, f"{sr}.wav")
+            aio.write_wav(path, x, sr, dtype=dtype)
+            got = aio.load_audio(path, 16000)
+            wav, wsr = aio.read_wav(path)
+            want = R.resample(wav.mean(axis=0), wsr, 16000)
+            err = float(np.abs(got - want).max())
+            same = np.array_equal(got, native.load_audio(path, 16000))
+            log(f"[audio] load_audio {dtype} x{channels} at {sr} Hz: the "
+                f"native path (bitwise native.load_audio: {same}) against "
+                f"the Python path, max abs err {err:.3g} (tolerance "
+                f"{NATIVE_LOAD_TOL})")
+            if not (same and got.shape == want.shape
+                    and err <= NATIVE_LOAD_TOL):
+                raise AssertionError(f"load_audio {sr}: {err}")
+    x = rng.standard_normal(16000)
+    for rate in (0.8, 1.07, 2 ** (4 / 12)):
+        got = aug.phase_vocoder_stretch(x, rate)
+        want = aug._numpy_phase_vocoder_stretch(x, rate)
+        err = float(np.abs(got - want).max())
+        nat_ms = host_ms(lambda: native.phase_vocoder_stretch(x, rate))
+        np_ms = host_ms(lambda: aug._numpy_phase_vocoder_stretch(x, rate))
+        log(f"[audio] vocoder rate {rate:.4f}: native against numpy "
+            f"{err:.3g} (tolerance {VOCODER_TOL}); {nat_ms:.2f} vs "
+            f"{np_ms:.2f} ms a 1 s clip (host clock)")
+        if not (got.shape == want.shape and err <= VOCODER_TOL):
+            raise AssertionError(f"vocoder rate {rate}: {err}")
+
+
+def timed_stacked_steps(module, torch, step_ms: list, first: list):
+    """Patch module.make_stacked_train_step to time each step (ending in
+    the host read of its losses, as the trainers do) and keep the model
+    config, the first step's inputs and its losses; returns the original to
+    restore."""
+    make = module.make_stacked_train_step
+
+    def timed_make(model_cfg, *args, **kw):
+        step = make(model_cfg, *args, **kw)
+
+        def timed(*step_args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*step_args)
+            losses = out[2].cpu().numpy()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not first:
+                first.append((model_cfg, step_args, losses))
+            return out
+        return timed
+
+    module.make_stacked_train_step = timed_make
+    return make
+
+
+def check_first_losses(ast_mod, torch, first, cfg) -> float:
+    """Each fold's first-step loss (before any update) against a
+    non-vmapped forward of that fold's parameters and batch."""
+    from zenker_audio_detection_tpu_torch.train import losses, optim
+
+    model_cfg, (params, _, feats, labels, mask, _, _), got = first[0]
+    errs = []
+    with torch.no_grad():
+        for f in range(len(got)):
+            p = optim.tree_map(lambda t: t[f], params)
+            logits = ast_mod.forward(p, feats[f], model_cfg, dtype=cfg.dtype)
+            want = float(losses.stage1_loss(
+                logits, labels[f], cfg.focal_gamma, cfg.label_smoothing,
+                sample_mask=mask[f]))
+            errs.append(abs(float(got[f]) - want))
+    log(f"[parallel] first-step losses {[round(float(x), 6) for x in got]}, "
+        f"each against its fold's own forward: max abs err "
+        f"{max(errs):.3g} (tolerance {FIRST_LOSS_TOL})")
+    if not max(errs) <= FIRST_LOSS_TOL:
+        raise AssertionError(f"vmapped first-step losses: {errs}")
+    return max(errs)
+
+
+def phase_parallel(A, ast_mod, torch, smi: str, loop_ms: float) -> None:
+    """Single-card A10 on the card: run_cross_validation over five folds
+    with fold_parallel at full width, trial-parallel sweeps of three trials
+    at full width, then both against the sequential trainer at a small f32
+    config."""
+    import dataclasses
+
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import fold_parallel as FP
+    from zenker_audio_detection_tpu_torch.train import loop as L
+    from zenker_audio_detection_tpu_torch.train import trial_parallel as TP
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_train_fold(tmp, seed=1, folds=PARALLEL_FOLDS)
+        cfg = L.TrainFoldConfig(
+            stage="stage1", data_dir=data,
+            output_root=os.path.join(tmp, "folds"), num_epochs=1,
+            batch_size=LOOP_BATCH, dtype=torch.bfloat16, augment=True,
+            enable_early_stopping=False, fold_parallel=True, device="cuda")
+        step_ms, first = [], []
+        make = timed_stacked_steps(FP, torch, step_ms, first)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the fold-parallel path: counts zeroed just before, read
+            # just after
+            zero_counts(A)
+            t0 = time.perf_counter()
+            result = L.run_cross_validation(list(PARALLEL_FOLDS), cfg,
+                                            tracking_opts={"enabled": False})
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = counts(A)
+            # ----------------------------------------------------------------
+        finally:
+            FP.make_stacked_train_step = make
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        F = len(PARALLEL_FOLDS)
+        steps = -(-2 * LOOP_TRAIN_PER_CLASS // LOOP_BATCH)
+        if len(step_ms) != steps or any(launches.values()):
+            raise AssertionError(f"{len(step_ms)} vmapped steps (want "
+                                 f"{steps}), launches {launches}")
+        for fold in PARALLEL_FOLDS:
+            check_fold_artifacts(cfg.output_root, cfg.num_epochs, fold)
+        losses = [m[f"fold{k}_test_eval_loss"]
+                  for k, m in zip(PARALLEL_FOLDS, result["per_fold"])]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fold losses {losses}")
+        check_first_losses(ast_mod, torch, first, cfg)
+        per_step = float(np.median(step_ms[1:]))
+        del first[:]
+        log(f"[parallel] {F} folds in one vmapped step, full width, batch "
+            f"{LOOP_BATCH}, bf16, remat, torch attention: {per_step:.2f} ms "
+            f"per step (median of steps 2-{steps}; each "
+            f"{[round(x, 2) for x in step_ms]}) beside the sequential "
+            f"loop's {loop_ms:.2f} ms/step in this run (phase 7): "
+            f"{per_step / (F * loop_ms):.3f} of {F} x sequential; peak "
+            f"memory {peak:.2f} GB; run_cross_validation {run_s:.1f} s; "
+            f"launches {launches}; every fold's artifacts present; {smi}")
+
+        # ---- trial-parallel, full width, fold 1, three trials, one epoch
+        step_ms, first = [], []
+        make = timed_stacked_steps(TP, torch, step_ms, first)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = dataclasses.replace(cfg, fold_parallel=False)
+            cfgs = [dataclasses.replace(
+                base, output_root=os.path.join(tmp, f"trial{t}"), **trial)
+                for t, trial in enumerate(TRIALS)]
+            zero_counts(A)
+            TP.train_trials_parallel(1, cfgs)
+            torch.cuda.synchronize()
+            launches = counts(A)
+        finally:
+            TP.make_stacked_train_step = make
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if len(step_ms) != steps or any(launches.values()):
+            raise AssertionError(f"{len(step_ms)} trial steps, {launches}")
+        per_step = float(np.median(step_ms[1:]))
+        log(f"[parallel] {len(TRIALS)} trials sharing one batch, full "
+            f"width, batch {LOOP_BATCH}, bf16: {per_step:.2f} ms per step "
+            f"(median of steps 2-{steps}; each "
+            f"{[round(x, 2) for x in step_ms]}), "
+            f"{per_step / (len(TRIALS) * loop_ms):.3f} of {len(TRIALS)} x "
+            f"sequential; peak memory {peak:.2f} GB; launches {launches}; "
+            f"{smi}")
+
+        # ---- numerics at a small f32 config against the sequential path
+        small = ast_mod.ASTConfig(**LOOP_SMALL)
+        pretrained = os.path.join(tmp, "small")
+        convert.save_hf_model_dir(
+            ast_mod.init_params(np.random.default_rng(11), small), small,
+            pretrained)
+        base = L.TrainFoldConfig(
+            stage="stage1", data_dir=data, pretrained_model_dir=pretrained,
+            num_epochs=2, batch_size=LOOP_BATCH, learning_rate=1e-3,
+            dtype=torch.float32, augment=False, enable_early_stopping=False,
+            device="cuda")
+        FP.train_folds_parallel([1, 2], dataclasses.replace(
+            base, output_root=os.path.join(tmp, "small_par")))
+        for fold in (1, 2):
+            L.train_fold(fold, dataclasses.replace(
+                base, output_root=os.path.join(tmp, "small_seq")))
+        fold_err = max(history_gap(tmp, "small_par", "small_seq", fold)
+                       for fold in (1, 2))
+        cfgs = [dataclasses.replace(
+            base, output_root=os.path.join(tmp, f"tp{t}"), **trial)
+            for t, trial in enumerate(TRIALS)]
+        TP.train_trials_parallel(1, cfgs)
+        for t, c in enumerate(cfgs):
+            L.train_fold(1, dataclasses.replace(
+                c, output_root=os.path.join(tmp, f"ts{t}")))
+        trial_err = max(history_gap(tmp, f"tp{t}", f"ts{t}", 1)
+                        for t in range(len(TRIALS)))
+        log(f"[parallel] small f32 config on the card: fold-parallel "
+            f"(folds 1, 2) against sequential train_fold, histories max abs "
+            f"{fold_err:.3g}; trial-parallel against sequential trials, "
+            f"per-epoch loss, f1, accuracy max abs {trial_err:.3g} "
+            f"(tolerance {PARALLEL_TOL})")
+        if not (fold_err <= PARALLEL_TOL and trial_err <= PARALLEL_TOL):
+            raise AssertionError(f"parallel vs sequential: folds {fold_err}, "
+                                 f"trials {trial_err}")
+
+
+def history_gap(tmp: str, a: str, b: str, fold: int) -> float:
+    """Largest gap of per-epoch loss, f1 and accuracy between two runs'
+    histories (inf when their epochs differ)."""
+    hist = []
+    for tag in (a, b):
+        with open(os.path.join(tmp, tag, f"fold{fold}", "history.json")) as f:
+            hist.append(json.load(f))
+    if [h["epoch"] for h in hist[0]] != [h["epoch"] for h in hist[1]]:
+        return math.inf
+    return max(abs(x[k] - y[k]) for x, y in zip(*hist)
+               for k in ("loss", "f1", "accuracy"))
+
+
 def main() -> int:
     import torch
 
@@ -2296,10 +2640,15 @@ def main() -> int:
         if r["name"] in PIPELINED:
             r["ctas_per_sm"] = occupancy[r["name"]]
     phase_train_small_f32(ast_mod, torch)
-    phase_train_loop(A, C, ast_mod, torch, smi)
+    loop_ms = phase_train_loop(A, C, ast_mod, torch, smi)
     serving = phase_serving(A, C, ast_mod, torch, smi)
     record.update({f"stream_{k}": v for k, v in serving.items()
                    if k.startswith("b")})
+    t0 = time.perf_counter()
+    phase_audio_io(torch, smi)
+    phase_parallel(A, ast_mod, torch, smi, loop_ms)
+    log(f"[parallel] phase 9 (audio I/O, fold- and trial-parallel) "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

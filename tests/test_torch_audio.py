@@ -1,10 +1,13 @@
 """The port's host-side copies (WAV codec, resampler, discovery) against
-the JAX package's modules and the resample goldens."""
+the JAX package's modules and the resample goldens, and the device
+resampler `resample_torch` against `resample_jax`, the host resampler and
+the goldens (tests/test_golden.py's 2e-5 for the device path)."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from zenker_audio_detection_tpu.audio import io as jaio
 from zenker_audio_detection_tpu.infer import discovery as jdiscovery
@@ -24,6 +27,59 @@ def test_resample_matches_golden(case):
     assert got.shape == g[f"{case}_out"].shape
     # tests/test_golden.py's bound for the host resampler
     np.testing.assert_allclose(got, g[f"{case}_out"], atol=1e-6)
+
+
+DEVICE_RESAMPLE_TOL = 2e-5
+RESAMPLE_CASES = ["noise_48k_to_16k", "noise_44k1_to_16k", "tone_48k_to_16k"]
+
+
+@pytest.mark.parametrize("case", RESAMPLE_CASES)
+def test_resample_torch_matches_golden_and_jax(case):
+    from zenker_audio_detection_tpu.ops import resample as JR
+
+    g = np.load(os.path.join(GOLDEN, "resample_golden.npz"))
+    orig, new = (int(r) for r in g[f"{case}_rates"])
+    x = g[f"{case}_in"]
+    got = R.resample_torch(x, orig, new, device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    got = got.numpy()
+    want = np.asarray(JR.resample_jax(x, orig, new))
+    assert got.shape == want.shape == g[f"{case}_out"].shape
+    np.testing.assert_allclose(got, g[f"{case}_out"], atol=DEVICE_RESAMPLE_TOL)
+    np.testing.assert_allclose(got, want, atol=DEVICE_RESAMPLE_TOL)
+
+
+@pytest.mark.parametrize("orig,new,shape", [(44100, 48000, (3001,)),
+                                            (48000, 16000, (2, 3, 4801)),
+                                            (22050, 16000, (2, 777)),
+                                            (16000, 16000, (2, 100))])
+def test_resample_torch_matches_the_host_resampler(orig, new, shape):
+    """Batched leading axes, an upsampling pair and equal rates: the host
+    resampler's output (its f64 sums) at 2e-5, the tensor's device kept."""
+    from zenker_audio_detection_tpu.ops import resample as JR
+
+    x = np.random.default_rng(orig + len(shape)).standard_normal(
+        shape).astype(np.float32)
+    got = R.resample_torch(torch.from_numpy(x), orig, new)
+    assert got.shape == R.resample(x, orig, new).shape
+    np.testing.assert_allclose(got.numpy(), R.resample(x, orig, new),
+                               atol=DEVICE_RESAMPLE_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(JR.resample_jax(x, orig, new)),
+                               atol=DEVICE_RESAMPLE_TOL)
+
+
+def test_resample_torch_guards():
+    """The host resampler's refusals: rates below 1 and the corrupt-header
+    kernel-cost bound; a non-tensor input without a device needs CUDA."""
+    x = np.zeros(100, np.float32)
+    with pytest.raises(ValueError, match="invalid resample rates"):
+        R.resample_torch(x, 0, 16000, device="cpu")
+    with pytest.raises(ValueError, match="polyphase kernel table"):
+        R.resample_torch(x, 2_000_000_011, 16000, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            R.resample_torch(x, 48000, 16000)
 
 
 @pytest.mark.parametrize("sr,channels,dtype", [(16000, 1, "int16"),

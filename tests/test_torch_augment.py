@@ -2,10 +2,11 @@
 package's, transform by transform and composed, on the same inputs and the
 same `np.random.default_rng` seeds, at atol 1e-6.
 
-Both sides run the numpy phase vocoder: the JAX module dispatches the time
-stretch to a native vocoder when `libaudioio.so` is built, and the port has
-no native binding yet, so the JAX side's dispatcher is pointed at its numpy
-path here (`numpy_vocoder`). Also the JAX tests' behavioural checks
+Both packages dispatch the time stretch to the native vocoder when their
+library is available, so the oracle comparisons pin both sides to the numpy
+vocoder (`numpy_vocoder`), and one case runs both on the native one
+(`native_vocoder`: the JAX binding loads the library the port builds from
+the same sources). Also the JAX tests' behavioural checks
 (tests/test_augment.py) on the port."""
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 
 from zenker_audio_detection_tpu.audio import native as jax_native
 from zenker_audio_detection_tpu.data import augment as JA
+from zenker_audio_detection_tpu_torch.audio import native as port_native
 from zenker_audio_detection_tpu_torch.data import augment as A
 
 ATOL = 1e-6
@@ -21,8 +23,20 @@ TRANSFORMS = [name for name, _, _ in JA._TRANSFORMS]
 
 @pytest.fixture
 def numpy_vocoder(monkeypatch):
-    monkeypatch.setattr(jax_native, "phase_vocoder_stretch",
-                        lambda x, rate: None)
+    for native in (jax_native, port_native):
+        monkeypatch.setattr(native, "phase_vocoder_stretch",
+                            lambda x, rate: None)
+
+
+@pytest.fixture
+def native_vocoder(monkeypatch):
+    """Both packages on the native vocoder: the JAX binding is pointed at
+    the library the port built (never `make -C native` from here)."""
+    assert port_native.available()
+    monkeypatch.setenv("ZENKER_AUDIOIO_LIB", str(port_native.library_path()))
+    monkeypatch.setattr(jax_native, "_LIB", None)
+    monkeypatch.setattr(jax_native, "_TRIED", False)
+    assert jax_native.available()
 
 
 def _signal(seed: int, n: int = 16000) -> np.ndarray:
@@ -50,7 +64,7 @@ def test_transform_matches_jax(numpy_vocoder, name, seed):
 
 
 @pytest.mark.parametrize("rate", [0.8, 0.93, 1.0, 1.25])
-def test_vocoder_matches_jax_numpy_path(rate):
+def test_vocoder_matches_jax_numpy_path(numpy_vocoder, rate):
     x = _signal(3)
     np.testing.assert_allclose(A.phase_vocoder_stretch(x, rate),
                                JA._numpy_phase_vocoder_stretch(x, rate)
@@ -73,6 +87,19 @@ def test_augment_waveform_matches_jax(numpy_vocoder, seed):
     want = JA.augment_waveform(x, np.random.default_rng(seed))
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_augment_waveform_matches_jax_both_native(native_vocoder, seed):
+    x = _signal(seed).astype(np.float32)
+    assert port_native.phase_vocoder_stretch(x, 1.1) is not None
+    got = A.augment_waveform(x, np.random.default_rng(seed))
+    want = JA.augment_waveform(x, np.random.default_rng(seed))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    stretched = A.phase_vocoder_stretch(x.astype(np.float64), 0.93)
+    np.testing.assert_array_equal(
+        stretched, jax_native.phase_vocoder_stretch(x.astype(np.float64),
+                                                    0.93))
 
 
 def test_augment_preserves_length_and_dtype():

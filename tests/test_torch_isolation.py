@@ -49,8 +49,12 @@ def test_port_imports_no_jax():
             "zenker_audio_detection_tpu_torch.cli.serve_supervisor",
             "zenker_audio_detection_tpu_torch.cli.run_batch_2stage",
             "zenker_audio_detection_tpu_torch.cli.run_all_folds",
-            "zenker_audio_detection_tpu_torch.cli.aggregate_results"} <= set(
-                mods)
+            "zenker_audio_detection_tpu_torch.cli.aggregate_results",
+            "zenker_audio_detection_tpu_torch.audio.native",
+            "zenker_audio_detection_tpu_torch.train.fold_parallel",
+            "zenker_audio_detection_tpu_torch.train.trial_parallel",
+            "zenker_audio_detection_tpu_torch.tune.sweep",
+            "zenker_audio_detection_tpu_torch.cli.sweep"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"
@@ -211,3 +215,58 @@ def test_cpu_tensors_take_the_plain_version_trainable():
     torch.testing.assert_close(got.detach(),
                                A.mha_packed_reference(q, k, v, 2).detach(),
                                atol=0, rtol=0)
+
+
+def test_parallel_and_sweep_modules_load_no_yaml():
+    """The sweep agent, its CLI and the parallel trainers import in a fresh
+    interpreter without yaml (the card's machine may have no PyYAML: only
+    reading a sweep YAML needs it), jax or the JAX package."""
+    mods = ["zenker_audio_detection_tpu_torch.tune.sweep",
+            "zenker_audio_detection_tpu_torch.cli.sweep",
+            "zenker_audio_detection_tpu_torch.train.fold_parallel",
+            "zenker_audio_detection_tpu_torch.train.trial_parallel"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('yaml', 'jax', 'optax',\n"
+        "                                    'zenker_audio_detection_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_native_binding_never_reads_the_make_build(tmp_path):
+    """The port's audio/native.py builds its own library under build/native
+    and never opens native/libaudioio.so (the JAX package's `make -C
+    native` output): every open() and ctypes load of a process that builds
+    (or finds) and uses the port's library is recorded."""
+    code = (
+        "import builtins, ctypes, sys\n"
+        "seen = []\n"
+        "real_open, real_cdll = builtins.open, ctypes.CDLL.__init__\n"
+        "def spy_open(f, *a, **k):\n"
+        "    seen.append(str(f))\n"
+        "    return real_open(f, *a, **k)\n"
+        "def spy_cdll(self, name, *a, **k):\n"
+        "    seen.append(str(name))\n"
+        "    return real_cdll(self, name, *a, **k)\n"
+        "builtins.open, ctypes.CDLL.__init__ = spy_open, spy_cdll\n"
+        "from zenker_audio_detection_tpu_torch.audio import native\n"
+        "import numpy as np\n"
+        "assert native.available()\n"
+        "assert native.phase_vocoder_stretch(np.ones(4096), 1.1) is not None\n"
+        "libs = [s for s in seen if s.endswith('.so')]\n"
+        "assert libs and all('/build/native/' in s for s in libs), libs\n"
+        f"make_build = {os.path.join(REPO, 'native', 'libaudioio.so')!r}\n"
+        "assert not any(s.endswith('libaudioio.so') or s == make_build\n"
+        "               for s in seen), seen\n"
+        "print('ok', libs)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

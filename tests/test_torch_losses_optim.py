@@ -234,3 +234,179 @@ def test_clip_scales_exactly_at_the_norm(g, clipped):
     torch.testing.assert_close(state["mu"]["w"],
                                (1 - 0.9) * torch.tensor(clipped),
                                atol=1e-8, rtol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the traced losses and the tensor-hyperparameter AdamW (the fold- and
+# trial-parallel steps)
+# ---------------------------------------------------------------------------
+
+TRACED = ("stage1_loss", "stage2_focal_loss", "stage2_weighted_ce")
+
+
+def _traced_call(mod, name, logits, labels, gamma, ls, mask, weights):
+    """`mod`'s <name>_traced with (γ, ls) traced, and its branchy twin's
+    keyword arguments."""
+    if name == "stage1_loss":
+        return (mod.stage1_loss_traced(logits, labels, gamma, ls,
+                                       sample_mask=mask),
+                dict(focal_gamma=gamma, label_smoothing=ls))
+    if name == "stage2_focal_loss":
+        return (mod.stage2_focal_loss_traced(logits, labels, weights, 0.25,
+                                             gamma, ls, sample_mask=mask),
+                dict(class_weights=weights, focal_alpha=0.25,
+                     focal_gamma=gamma, label_smoothing=ls))
+    return (mod.stage2_weighted_ce_traced(logits, labels, weights, ls,
+                                          sample_mask=mask),
+            dict(class_weights=weights, label_smoothing=ls))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ls", [0.0, 0.07])
+@pytest.mark.parametrize("gamma", [0.0, 1.0, 2.0])
+@pytest.mark.parametrize("name", TRACED)
+def test_traced_loss_matches_jax_and_the_branchy_loss(name, gamma, ls,
+                                                      masked):
+    """*_traced with 0-d tensor (γ, ls) against the JAX *_traced (traced
+    scalars) and against the port's branchy loss at the same point:
+    values and gradients at 1e-6, finite gradients at γ = 0 (where the
+    traced form must not take 0**-1)."""
+    import jax
+    import jax.numpy as jnp
+
+    logits, labels, mask = _batch(int(gamma * 10 + ls * 100), 16)
+    # one row pinned to p_t = 1 in f32: the focal base 1 - p_t is 0 there
+    logits[0] = [60.0, -60.0]
+    labels[0] = 0
+    weights = None if name == "stage1_loss" else [0.7, 1.9]
+    jmask = jnp.asarray(mask) if masked else None
+    want, want_g = jax.value_and_grad(lambda lg: _traced_call(
+        JL, name, lg, jnp.asarray(labels), jnp.float32(gamma),
+        jnp.float32(ls), jmask, weights)[0])(jnp.asarray(logits))
+
+    def port(fn_args):
+        x = torch.from_numpy(logits).requires_grad_()
+        out = fn_args(x)
+        out.backward()
+        return out.detach(), x.grad.numpy()
+
+    tmask = torch.from_numpy(mask) if masked else None
+    tlabels = torch.from_numpy(labels).long()
+    got, got_g = port(lambda x: _traced_call(
+        losses, name, x, tlabels, torch.tensor(gamma), torch.tensor(ls),
+        tmask, weights)[0])
+    _, kw = _traced_call(losses, name, torch.from_numpy(logits), tlabels,
+                         gamma, ls, tmask, weights)
+    plain, plain_g = port(lambda x: getattr(losses, name)(
+        x, tlabels, **kw, sample_mask=tmask))
+    assert np.isfinite(got_g).all()
+    for value, grad in ((float(want), np.asarray(want_g)),
+                        (float(plain), plain_g)):
+        np.testing.assert_allclose(float(got), value, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got_g, grad, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", TRACED)
+def test_traced_loss_vmaps_over_trials(name):
+    """One vmapped call with per-trial (γ, ls) equals each trial's own
+    call, on a batch the trials share."""
+    logits, labels, mask = _batch(5, 16)
+    gammas = torch.tensor([0.0, 1.0, 2.5])
+    lss = torch.tensor([0.0, 0.07, 0.12])
+    weights = None if name == "stage1_loss" else torch.tensor([0.7, 1.9])
+    tl = torch.from_numpy(labels).long()
+    tm = torch.from_numpy(mask)
+    stacked = torch.from_numpy(np.stack([logits, logits * 0.5, -logits]))
+
+    def one(lg, g, ls):
+        return _traced_call(losses, name, lg, tl, g, ls, tm, weights)[0]
+
+    got = torch.func.vmap(one)(stacked, gammas, lss)
+    for t in range(3):
+        torch.testing.assert_close(got[t], one(stacked[t], gammas[t], lss[t]),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("lr,wd,b2,warmup", [
+    (3.7e-5, 0.013, 0.97, 0.2),
+    (1e-3, 0.0, 0.999, 0.05),
+    (5e-4, 0.1, 0.95, 0.0),
+])
+def test_adamw_apply_matches_jax_and_make_optimizer(lr, wd, b2, warmup):
+    """optim.adamw_apply over 5 steps (the second far above max_grad_norm)
+    against the JAX adamw_apply at 1e-7, with the hyperparameters as 0-d
+    f32 tensors on both sides, and against the port's make_optimizer chain
+    with the same schedule read as a step-indexed lr (1e-7)."""
+    import jax
+    import jax.numpy as jnp
+
+    tree = _tree(np.random.default_rng(0))
+    total = 5
+    sched = optim.linear_schedule(lr, total, warmup)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = JO.adamw_init(jparams)
+    params = _torch(tree)
+    state = optim.adamw_init(params)
+    ref = _torch(tree)
+    tx = optim.make_optimizer(lr, total, warmup, wd, beta2=b2)
+    ref_state = tx.init(ref)
+    mask = optim.decay_mask(params)
+    for step in range(total):
+        scale = 50.0 if step == 1 else 1.0
+        g = jax.tree.map(lambda p: (np.random.default_rng(100 + step)
+                                    .standard_normal(p.shape) * scale)
+                         .astype(np.float32), tree)
+        jparams, jstate = JO.adamw_apply(
+            jparams, jstate, jax.tree.map(jnp.asarray, g),
+            lr=jnp.float32(sched(step)), weight_decay=jnp.float32(wd),
+            beta2=jnp.float32(b2), mask_tree=JO.decay_mask(jparams))
+        params, state = optim.adamw_apply(
+            params, state, _torch(g), lr=torch.tensor(sched(step)),
+            weight_decay=torch.tensor(wd, dtype=torch.float32),
+            beta2=torch.tensor(b2, dtype=torch.float32), mask_tree=mask)
+        upd, ref_state = tx.update(_torch(g), ref_state, ref)
+        ref = optim.apply_updates(ref, upd)
+        got = _numpy(params)
+        for k, want in jax.tree_util.tree_leaves_with_path(jparams):
+            node, other = got, _numpy(ref)
+            for part in k:
+                node, other = node[part.key], other[part.key]
+            np.testing.assert_allclose(node, np.asarray(want), atol=1e-7,
+                                       err_msg=f"step {step} {k}")
+            np.testing.assert_allclose(node, other, atol=1e-7,
+                                       err_msg=f"step {step} {k} chain")
+    assert int(state["count"]) == int(jstate["count"]) == total
+    assert state["count"].dtype == torch.int32
+
+
+def test_adamw_apply_vmapped_clips_each_member_alone():
+    """Under vmap the global norm is each member's own: a member with
+    gradients far above max_grad_norm beside one far below comes out as
+    each would alone (a norm over both would couple them)."""
+    trees = [_torch(_tree(np.random.default_rng(s))) for s in (1, 2)]
+    grads = [_torch(g) for g in _grad_seq(_tree(np.random.default_rng(1)),
+                                          3, 2, big={0})][:2]
+    assert float(optim.global_norm(grads[0])) > 1.0 > float(
+        optim.global_norm(grads[1]))
+
+    def stacked(*xs):
+        return optim.tree_map(lambda *a: torch.stack(a), *xs)
+
+    mask = optim.decay_mask(trees[0])
+    lr = torch.tensor([1e-2, 3e-3])
+    wd = torch.tensor([0.01, 0.1])
+
+    def one(p, s, g, lr, wd):
+        return optim.adamw_apply(p, s, g, lr=lr, weight_decay=wd, beta2=0.98,
+                                 mask_tree=mask)
+
+    got, got_state = torch.func.vmap(one)(
+        stacked(*trees), torch.func.vmap(optim.adamw_init)(stacked(*trees)),
+        stacked(*grads), lr, wd)
+    for i in range(2):
+        want, want_state = one(trees[i], optim.adamw_init(trees[i]),
+                               grads[i], lr[i], wd[i])
+        for (_, a), (_, b) in zip(optim.tree_items(got),
+                                  optim.tree_items(want)):
+            torch.testing.assert_close(a[i], b, atol=1e-7, rtol=0)
+        assert int(got_state["count"][i]) == int(want_state["count"]) == 1

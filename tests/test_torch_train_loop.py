@@ -17,7 +17,7 @@ Also, within the port: the artifact contract and the HF reload
 (tests/test_train_loop.py:94-133), the dry run, the run-dir backup,
 streaming equal to eager bit for bit, the tracking channels, featurization
 against the JAX package (1e-5; 1e-3 in bins near the log floor, as
-tests/test_golden.py), the refusal of what is not ported (ROADMAP A10) and
+tests/test_golden.py), the refusal of what is not ported (ROADMAP A10b) and
 of a missing CUDA, and the CLIs."""
 
 import json
@@ -31,6 +31,7 @@ from zenker_audio_detection_tpu.audio import native as jax_native
 from zenker_audio_detection_tpu.models import ast as jast
 from zenker_audio_detection_tpu.models import convert as jconvert
 from zenker_audio_detection_tpu.train import loop as JL
+from zenker_audio_detection_tpu_torch.audio import native as port_native
 from zenker_audio_detection_tpu_torch.cli import compute_stats as cli_stats
 from zenker_audio_detection_tpu_torch.cli import train_stage1 as cli_s1
 from zenker_audio_detection_tpu_torch.cli import train_stage2 as cli_s2
@@ -297,8 +298,9 @@ def test_featurize_paths_matches_jax(monkeypatch, augment):
     other orders are magnified by the log (tests/test_golden.py's bound;
     the gap grows smoothly as the power falls: 2e-7 above log-mel 0, 7e-6
     at -7, 7e-5 at -12 here)."""
-    monkeypatch.setattr(jax_native, "phase_vocoder_stretch",
-                        lambda x, rate: None)
+    for native in (jax_native, port_native):
+        monkeypatch.setattr(native, "phase_vocoder_stretch",
+                            lambda x, rate: None)
     rng = np.random.default_rng(5)
     entries = [(rng.standard_normal(n) * 0.1).astype(np.float32)
                for n in (16000, 16000, 12345, 300)]
@@ -361,12 +363,15 @@ def test_per_fold_tracking_runs(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"num_devices": 2}, {"num_slices": 2},
-                                {"fold_parallel": True},
+                                {"fold_parallel": True, "data_per_fold": 2},
                                 {"data_per_fold": 2}])
 def test_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    """Training over several devices is ROADMAP A10b; fold-parallel
+    training on one device is ported (tests/test_torch_fold_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
         L.TrainFoldConfig(**kw)
     L.TrainFoldConfig(num_devices=1, num_slices=1)  # one device is fine
+    L.TrainFoldConfig(fold_parallel=True)
 
 
 def test_loop_needs_cuda_unless_the_cpu_is_named(tmp_path, monkeypatch):
@@ -436,10 +441,11 @@ def test_compute_stats_cli_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--num-devices", "2"],
                                    ["--num-slices", "2"],
-                                   ["--parallel-folds"],
+                                   ["--parallel-folds", "--data-per-fold",
+                                    "2"],
                                    ["--data-per-fold", "2"]])
 def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
+    with pytest.raises(SystemExit, match="ROADMAP A10b"):
         cli_s1.main(["--device", "cpu", *flags])
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/smoke_phase.py [--phases train_alone train loop serving]
+    python3 tools/smoke_phase.py [--phases train_alone train loop serving
+                                   audio parallel]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
@@ -10,7 +11,10 @@ chip_smoke.py's main would but without the phases before them:
 (the full-width training step of both routes, which logs its ms per step),
 `loop` (the training loop, which logs its ms per step) and `serving`
 (phase 8: int8 inference, streaming and the serving CLIs, which logs
-windows/s, emit latency and mha_packed at the streaming buckets).
+windows/s, emit latency and mha_packed at the streaming buckets), `audio`
+(phase 9's native library, resamplers, loader and vocoder) and `parallel`
+(phase 9's fold- and trial-parallel training, which sets its ms per step
+beside the `loop` phase's when that ran first, else beside nan).
 After each phase it prints the caching allocator's counters (device
 allocations and frees, allocation retries, reserved and allocated GB), so
 two checkouts' phases can be compared alone and after each other in one
@@ -26,7 +30,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("train_alone", "train", "loop", "serving")
+PHASES = ("train_alone", "train", "loop", "serving", "audio", "parallel")
 
 
 def main() -> int:
@@ -50,6 +54,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     _cuda.build_all()
+    loop_ms = float("nan")
     for phase in args.phases:
         t0 = time.perf_counter()
         if phase == "train_alone":
@@ -57,7 +62,11 @@ def main() -> int:
         elif phase == "train":
             chip_smoke.phase_train(A, ast_mod, torch)
         elif phase == "loop":
-            chip_smoke.phase_train_loop(A, C, ast_mod, torch, smi)
+            loop_ms = chip_smoke.phase_train_loop(A, C, ast_mod, torch, smi)
+        elif phase == "audio":
+            chip_smoke.phase_audio_io(torch, smi)
+        elif phase == "parallel":
+            chip_smoke.phase_parallel(A, ast_mod, torch, smi, loop_ms)
         else:
             print(chip_smoke.phase_serving(A, C, ast_mod, torch, smi),
                   flush=True)

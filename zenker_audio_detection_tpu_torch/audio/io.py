@@ -11,8 +11,10 @@ including the WAVE_FORMAT_EXTENSIBLE wrapper. `load_audio` reproduces the
 reference's exact loading semantics: decode -> mean over channels -> resample
 to 16 kHz.
 
-Port of the JAX package's `audio/io.py` on its pure-Python path; the
-binding to the native C++ loader is not ported yet (ROADMAP item A8).
+Port of the JAX package's `audio/io.py`. `load_audio` takes the native C++
+loader (`audio/native.py`, built at first use) when it is available, and the
+pure-Python path here otherwise; that path is the native one's numerics
+oracle (decode 1e-7, resample 2e-6, tests/test_torch_native_audio.py).
 """
 
 from __future__ import annotations
@@ -200,7 +202,17 @@ def load_audio_compact(path: str, target_sr: int = SAMPLING_RATE) -> np.ndarray:
 
 def load_audio(path: str, target_sr: int = SAMPLING_RATE) -> np.ndarray:
     """Reference-equivalent loader (src/test_long_audio_windows_2stage.py:53-59):
-    decode -> mono channel-mean -> resample to target_sr -> 1-D float32."""
+    decode -> mono channel-mean -> resample to target_sr -> 1-D float32.
+
+    Uses the native loader (audio/native.py) when it is available; the
+    pure-Python path below is the fallback and the numerics oracle."""
+    from . import native
+
+    if native.available():
+        out = native.load_audio(path, target_sr)
+        if out is not None:
+            return out
+
     from ..ops import resample as R
 
     wav, sr = read_wav(path)

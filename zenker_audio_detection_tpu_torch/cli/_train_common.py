@@ -2,9 +2,11 @@
 src/train_ast_stage1_cross_validation.py:651-758 and the stage-2 twin).
 
 The port's copy of the JAX package's `cli/_train_common.py`, with
-`--device`. The data-parallel and fold-parallel flags (`--num-devices`,
-`--num-slices` above 1, `--parallel-folds`, `--data-per-fold`) are parsed
-and refused: that training is not ported yet (ROADMAP A10)."""
+`--device`. `--parallel-folds` trains the target folds at once in one
+vmapped step on that device (train/fold_parallel.py). The flags of
+parallelism over several devices (`--num-devices`, `--num-slices` above 1,
+`--data-per-fold`) are parsed and refused: that training is not ported yet
+(ROADMAP A10b)."""
 
 from __future__ import annotations
 
@@ -53,16 +55,20 @@ def add_common_train_args(ap: argparse.ArgumentParser, stage: str) -> None:
                          "cpu); cuda raises when CUDA is missing")
     ap.add_argument("--num-devices", type=int, default=None,
                     help="data-parallel devices; not ported yet (ROADMAP "
-                         "A10): above 1 it is refused")
+                         "A10b): above 1 it is refused")
     ap.add_argument("--num-slices", type=int, default=None,
                     help="multi-slice data parallelism; not ported yet "
-                         "(ROADMAP A10): above 1 it is refused")
+                         "(ROADMAP A10b): above 1 it is refused")
     ap.add_argument("--parallel-folds", action="store_true",
-                    help="fold-parallel training; not ported yet (ROADMAP "
-                         "A10): refused")
+                    help="train all target folds at once in ONE vmapped "
+                         "step on --device (train/fold_parallel.py): each "
+                         "fold keeps its own weights, optimizer state, LR "
+                         "schedule and early stopping, with the sequential "
+                         "trainer's numerics. Incompatible with "
+                         "--streaming, --resume and --grad-accum > 1")
     ap.add_argument("--data-per-fold", type=int, default=None,
                     help="fold x data mesh of --parallel-folds; not ported "
-                         "yet (ROADMAP A10): refused")
+                         "yet (ROADMAP A10b): refused")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="beyond-parity batch scaling: accumulate this many "
                          "micro-batches of --batch-size per optimizer "
@@ -134,10 +140,15 @@ def validate_train_args(args) -> list[int]:
             raise SystemExit(f"{flag} must be >= 1")
         if (value or 1) > 1:
             raise SystemExit(_not_ported(flag))
-    if args.parallel_folds:
-        raise SystemExit(_not_ported("--parallel-folds"))
     if args.data_per_fold is not None:
         raise SystemExit(_not_ported("--data-per-fold"))
+    if args.parallel_folds and (args.streaming or args.resume):
+        raise SystemExit("--parallel-folds is incompatible with "
+                         "--streaming/--resume (eager featurization only; "
+                         "resume folds with the sequential path)")
+    if args.parallel_folds and args.grad_accum > 1:
+        raise SystemExit("--grad-accum > 1 is incompatible with "
+                         "--parallel-folds")
     if "adamw" not in args.optim.lower():
         raise SystemExit(
             f"--optim {args.optim!r}: only AdamW identifiers are supported "
@@ -148,8 +159,8 @@ def validate_train_args(args) -> list[int]:
 
 
 def _not_ported(flag: str) -> str:
-    return (f"{flag}: data- and fold-parallel training is not ported yet "
-            f"(ROADMAP A10); the port trains on one device")
+    return (f"{flag}: training over several devices is not ported yet "
+            f"(ROADMAP A10b); the port trains on one device")
 
 
 def train_config(args, stage: str, **stage_kw):
@@ -182,5 +193,6 @@ def train_config(args, stage: str, **stage_kw):
         device=args.device,
         max_length=args.max_length,
         streaming=args.streaming,
+        fold_parallel=args.parallel_folds,
         **stage_kw,
     )

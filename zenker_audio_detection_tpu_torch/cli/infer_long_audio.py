@@ -7,7 +7,7 @@ served by the PyTorch engine. Differences: `--attention-impl` takes
 `--device` (default `cuda`) says where the engine runs, and `--trace-dir`
 writes a `torch.profiler` Chrome trace. `--num-devices` and `--num-slices`
 (sharding over several devices) are not ported yet: they raise
-(ROADMAP A10).
+(ROADMAP A10b).
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.infer_long_audio --help
 """
@@ -71,9 +71,9 @@ def build_arg_parser():
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (per-channel weights, per-token "
                          "activations); probabilities drift O(1e-2): "
@@ -122,7 +122,7 @@ def refuse_sharding(args) -> None:
         if getattr(args, flag, None) is not None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: sharding inference over "
-                "several devices is not ported yet (ROADMAP A10)")
+                "several devices is not ported yet (ROADMAP A10b)")
 
 
 def build_engine(args) -> tuple[C.TwoStageEngine, str, str]:

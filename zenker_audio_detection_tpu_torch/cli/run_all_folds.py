@@ -10,7 +10,7 @@ fold on the CPU): fold batches are independent (distinct models, disjoint
 patients), so N cards serve the whole study at about one fold's wall
 clock, and the shared output dir never collides. `--data-per-fold`,
 `--num-devices` and `--num-slices` (a fold's windows sharded over several
-devices) are not ported yet: they raise (ROADMAP A10).
+devices) are not ported yet: they raise (ROADMAP A10b).
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.run_all_folds --help
 """
@@ -55,9 +55,9 @@ def main(argv=None):
                          "cpu); with --parallel-folds and cuda, fold K runs "
                          "on cuda:((K-1) mod device count)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (see infer_long_audio --int8)")
     ap.add_argument("--parallel-folds", action="store_true",
@@ -65,7 +65,7 @@ def main(argv=None):
                          "fold-resident engine per fold (fold K on "
                          "cuda:((K-1) mod device count))")
     ap.add_argument("--data-per-fold", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--aggregate", action="store_true",
                     help="run the per-patient aggregator over the output "
                          "dir when all folds finish (the reference leaves "
@@ -78,7 +78,7 @@ def main(argv=None):
         if getattr(args, flag) is not None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: sharding a fold's windows over "
-                "several devices is not ported yet (ROADMAP A10)")
+                "several devices is not ported yet (ROADMAP A10b)")
 
     long_root = args.long_audio_root or \
         env_config.load_dataset_config()["long_audio_root"]

@@ -7,7 +7,7 @@ a subprocess per patient and reloads both models each time, :282-284).
 The engine runs on `--device` (default `cuda`; without a card that raises).
 `--num-devices`, `--num-slices` and a prebuilt `mesh` (sharding a fold's
 windows over several devices) are not ported yet: they raise
-`NotImplementedError` (ROADMAP A10).
+`NotImplementedError` (ROADMAP A10b).
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.run_batch_2stage --help
 """
@@ -53,7 +53,7 @@ def main(argv=None, mesh=None, device=None):
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh for one fold's engine is not ported yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A10b)")
     ap = argparse.ArgumentParser(
         description="Run two-stage inference for every test patient of a fold.")
     ap.add_argument("--fold", type=int, required=True)
@@ -84,9 +84,9 @@ def main(argv=None, mesh=None, device=None):
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10): raises")
+                    help="not ported yet (ROADMAP A10b): raises")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (see infer_long_audio --int8)")
     ap.add_argument("--extra", default=None,

@@ -18,10 +18,11 @@ SURVEY §3.1); they run once at dataset build, mirroring the reference's
 eager `datasets.map`.
 
 The port's copy of the JAX package's `data/augment.py`, with the port's own
-`ops/resample.resample`. The JAX module dispatches the time stretch to a
-native vocoder (`native/vocoder.cpp`) when `libaudioio.so` is built; the
-port has no native binding yet (ROADMAP A8), so it always runs the numpy
-vocoder, which is that native one's numerics oracle.
+`ops/resample.resample`. Like the JAX module it dispatches the time stretch
+to the native vocoder (`native/vocoder.cpp`, through the port's own binding
+`audio/native.py`) when that library is available, and to the numpy
+vocoder below otherwise; the numpy one is the native one's numerics oracle
+(1e-8).
 """
 
 from __future__ import annotations
@@ -68,10 +69,18 @@ def _istft(D: np.ndarray, length: int) -> np.ndarray:
 
 
 def phase_vocoder_stretch(x: np.ndarray, rate: float) -> np.ndarray:
-    """Time-stretch by `rate` (>1 = faster/shorter), librosa-style, with the
-    numpy vocoder below."""
+    """Time-stretch by `rate` (>1 = faster/shorter), librosa-style.
+
+    Dispatches to the native C++ vocoder (same algorithm, OpenMP over STFT
+    frames) when the library is available; the numpy body below is the
+    fallback and the numerics oracle."""
     if abs(rate - 1.0) < 1e-9:
         return x.copy()
+    from ..audio import native
+
+    out = native.phase_vocoder_stretch(x, rate)
+    if out is not None:
+        return out
     return _numpy_phase_vocoder_stretch(x, rate)
 
 

@@ -428,18 +428,31 @@ def encode(params: Params, input_values: torch.Tensor, config: ASTConfig,
     if remat and torch.is_grad_enabled():
         block = _checkpointed(block, remat_policy)
     with full_f32():
-        x = patch_embed(params, input_values, config, dtype)
-        B = x.shape[0]
-        cls = params["cls_token"].to(dtype).expand(B, 1, config.hidden_size)
-        dist = params["dist_token"].to(dtype).expand(B, 1, config.hidden_size)
-        x = torch.cat([cls, dist, x], dim=1) + params["pos_embed"].to(dtype)
+        x = embed(params, input_values, config, dtype)
         enc = params["encoder"]
         for layer in range(enc["ln1"]["scale"].shape[0]):
             lp = {name: {key: leaf[layer] for key, leaf in group.items()}
                   for name, group in enc.items()}
             x = block(x, lp)
-        return _layer_norm(x, params["ln_final"]["scale"],
-                           params["ln_final"]["bias"], config.layer_norm_eps)
+        return final_norm(params, x, config)
+
+
+def embed(params: Params, input_values: torch.Tensor, config: ASTConfig,
+          dtype=torch.float32) -> torch.Tensor:
+    """The tokens before the first block: patch embeddings after the CLS
+    and distillation tokens, plus the position embeddings (B, S, H)."""
+    x = patch_embed(params, input_values, config, dtype)
+    B = x.shape[0]
+    cls = params["cls_token"].to(dtype).expand(B, 1, config.hidden_size)
+    dist = params["dist_token"].to(dtype).expand(B, 1, config.hidden_size)
+    return torch.cat([cls, dist, x], dim=1) + params["pos_embed"].to(dtype)
+
+
+def final_norm(params: Params, x: torch.Tensor,
+               config: ASTConfig) -> torch.Tensor:
+    """The trunk's last LayerNorm."""
+    return _layer_norm(x, params["ln_final"]["scale"],
+                       params["ln_final"]["bias"], config.layer_norm_eps)
 
 
 def pool(hidden: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Polyphase sinc resampler, numerically matching `torchaudio.functional.resample`.
 
-Host (numpy) copy of the JAX package's `ops/resample.py:resample`; the audio
-loader resamples non-16 kHz files with it.
+The port of the JAX package's `ops/resample.py`: the host (numpy)
+`resample`, which the audio loader's Python path uses, and
+`resample_torch`, the device counterpart of `resample_jax`.
 
 The reference resamples every recording to 16 kHz through torchaudio's C++
 polyphase kernel (src/test_long_audio_windows_2stage.py:57-58,
@@ -12,7 +13,9 @@ and logits — agree with the reference pipeline.
 
 The compute is expressed as a polyphase gather + matmul: for reduced rates
 L (up) / M (down), each output phase p ∈ [0, L) is an FIR dot product against
-a fixed kernel row, so the whole resample is `frames @ kernels.T`.
+a fixed kernel row, so the whole resample is `frames @ kernels.T`. On the
+device that product is one strided `conv1d` (torchaudio's own formulation),
+which never materializes the overlapping frames.
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ import functools
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as nnf
+
+from ..utils.precision import full_f32
 
 # WAV-header sanity bound (audio/io.py): no real container rate exceeds
 # 1 MHz. NOT enforced on resample() itself — augmentation's pitch shift
@@ -112,3 +119,45 @@ def resample(waveform: np.ndarray, orig_freq: int, new_freq: int,
     out = np.einsum("bnk,pk->bnp", frames, kernels)
     out = out.reshape(x2.shape[0], -1)[:, : _target_length(n, down, up)]
     return out.reshape(shape[:-1] + (out.shape[-1],)).astype(np.float32)
+
+
+def resample_torch(waveform, orig_freq: int, new_freq: int,
+                   lowpass_filter_width: int = 6, rolloff: float = 0.99, *,
+                   device=None) -> torch.Tensor:
+    """Device resample of a (..., time) array or tensor; returns float32 on
+    `device` (None: the tensor's own device, CUDA for anything else).
+
+    The same filter as `resample` (the float64 table of `_design_kernel`,
+    cast to f32 on the device), the same pad and output length as the JAX
+    package's `resample_jax`. The JAX function gathers (blocks, kernel
+    width) frames and multiplies; here the product is one `conv1d` with
+    stride `down`, whose (B, up, blocks) output interleaves to the same
+    samples, and which for 600 s at 48 kHz avoids 1.6 GB of frames for a
+    38 MB result. The convolution runs inside `full_f32()`: cuDNN's TF32
+    default is three digits short of the golden's 2e-5."""
+    if orig_freq < 1 or new_freq < 1:
+        raise ValueError(
+            f"invalid resample rates {orig_freq} -> {new_freq}")
+    if device is None and isinstance(waveform, torch.Tensor):
+        device = waveform.device
+    else:
+        from ..infer.cascade import resolve_device
+
+        device = resolve_device(device)
+    x = torch.as_tensor(waveform).to(device=device, dtype=torch.float32)
+    if orig_freq == new_freq:
+        return x
+    g = math.gcd(int(orig_freq), int(new_freq))
+    up, down = int(new_freq) // g, int(orig_freq) // g
+    _check_kernel_cost(up, down, lowpass_filter_width, rolloff)
+    kernels_np, width = _design_kernel(down, up, lowpass_filter_width, rolloff)
+    kernels = torch.from_numpy(kernels_np).to(device).float()
+
+    n = x.shape[-1]
+    batch_shape = x.shape[:-1]
+    xp = nnf.pad(x.reshape(-1, n), (width, width + down))
+    with full_f32():
+        out = nnf.conv1d(xp[:, None], kernels[:, None, :], stride=down)
+    out = out.transpose(1, 2).reshape(xp.shape[0], -1)
+    out = out[:, : _target_length(n, down, up)]
+    return out.reshape(*batch_shape, out.shape[-1])

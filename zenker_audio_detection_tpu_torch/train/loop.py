@@ -18,10 +18,11 @@ The names and semantics are the JAX module's. The loop runs on one device,
 raises when CUDA is asked for and missing. The log-mel runs there in f32
 with TF32 off (`ops/fbank.logmel_frames`); the train and eval steps
 (`train/steps.py`) run the model's "torch" attention, as the JAX trainer's
-steps run its default "xla" attention. Data parallelism over several
-devices (`num_devices`, `num_slices`) and the fold-parallel trainer
-(`fold_parallel`, `data_per_fold`) are not ported yet (ROADMAP A10):
-asking for them raises `NotImplementedError`.
+steps run its default "xla" attention. `fold_parallel` trains all folds
+at once in one vmapped step on that device (train/fold_parallel.py). Data
+parallelism over several devices (`num_devices`, `num_slices`,
+`data_per_fold`) is not ported yet (ROADMAP A10b): asking for it raises
+`NotImplementedError`.
 
 Checkpoints keep the JAX layout (`save_checkpoint`), so a JAX checkpoint
 of the sequential trainer resumes here too.
@@ -63,8 +64,8 @@ STAGE_LABELS = {
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A10: parallelism and tuning); "
-        f"the port trains on one device")
+        f"{what} is not ported yet (ROADMAP A10b: parallelism over several "
+        f"devices); the port trains on one device")
 
 
 @dataclasses.dataclass
@@ -104,7 +105,7 @@ class TrainFoldConfig:
     # (used by the sweep agent's Hyperband-style early termination)
     on_epoch_end: Any = None
     # data-parallel mesh size and multi-slice split of the JAX trainer;
-    # above 1 they raise here (ROADMAP A10)
+    # above 1 they raise here (ROADMAP A10b)
     num_devices: int | None = None
     num_slices: int | None = None
     # short-sequence mode: fine-tune at this input frame count instead of
@@ -118,7 +119,9 @@ class TrainFoldConfig:
     # per-step train-loss logging cadence into the tracker (the reference's
     # HF Trainer logging_steps=20); 0 disables
     logging_steps: int = 20
-    # the JAX trainer's fold-parallel options; they raise here (ROADMAP A10)
+    # train all folds at once in one vmapped step (train/fold_parallel.py);
+    # data_per_fold, each fold's batch over a group of devices, raises here
+    # (ROADMAP A10b)
     fold_parallel: bool = False
     data_per_fold: int | None = None
     # accumulate this many micro-batches of batch_size before each
@@ -131,8 +134,6 @@ class TrainFoldConfig:
             raise _not_ported(f"num_devices={self.num_devices}")
         if (self.num_slices or 1) > 1:
             raise _not_ported(f"num_slices={self.num_slices}")
-        if self.fold_parallel:
-            raise _not_ported("fold_parallel")
         if self.data_per_fold is not None:
             raise _not_ported(f"data_per_fold={self.data_per_fold}")
 
@@ -899,6 +900,21 @@ def _adam_leaves(opt_state) -> list[np.ndarray]:
     return [count, *(m[name] for m in moments for name in sorted(m)), count]
 
 
+def sequential_opt_layout(opt_state) -> dict:
+    """A parallel trainer's per-fold or per-trial optimizer state
+    (`optim.adamw_init`'s {"count", "mu", "nu"}, one member's slice) in
+    the sequential AdamW's layout, which `save_checkpoint` writes.
+
+    The parallel trainers schedule the learning rate outside the optimizer,
+    so their state has no schedule count; the sequential checkpoint ends in
+    one (the JAX chain's ScaleByScheduleState), which `_adam_leaves` writes
+    as the Adam count, the number of updates taken. So the layouts differ
+    only in the count's type, and a parallel checkpoint resumes in the
+    sequential trainer of either package."""
+    return {"count": int(opt_state["count"]), "mu": opt_state["mu"],
+            "nu": opt_state["nu"]}
+
+
 def save_checkpoint(ck_dir: str, params, opt_state, state: dict) -> None:
     """Full training checkpoint in the JAX package's layout:
     `params.safetensors` (the parameters under their dotted names),
@@ -1076,14 +1092,14 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
     if run is not None:
         run.log_artifact(config_path)
 
-    all_metrics = []
-    for fold in folds:
+    def fold_tracker(fold):
         fold_run = (make_run(f"{run_config['run_id']}_fold{fold}")
                     if per_fold_runs else run)
         if per_fold_runs:
             fold_run.log_artifact(config_path)
-        m = train_fold(fold, cfg, tracker=fold_run)
-        all_metrics.append(m)
+        return fold_run
+
+    def fold_done(fold, fold_run, m):
         shutil.copy2(config_path,
                      os.path.join(cfg.output_root, f"fold{fold}",
                                   "run_config.json"))
@@ -1091,6 +1107,22 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
         if per_fold_runs:
             fold_run.summary(**m)
             fold_run.finish()
+
+    all_metrics = []
+    if cfg.fold_parallel:
+        from . import fold_parallel
+
+        fold_runs = {fold: fold_tracker(fold) for fold in folds}
+        all_metrics = fold_parallel.train_folds_parallel(
+            folds, cfg, trackers=fold_runs)
+        for fold, m in zip(folds, all_metrics):
+            fold_done(fold, fold_runs[fold], m)
+    else:
+        for fold in folds:
+            fold_run = fold_tracker(fold)
+            m = train_fold(fold, cfg, tracker=fold_run)
+            all_metrics.append(m)
+            fold_done(fold, fold_run, m)
 
     aggregate: dict[str, float] = {}
     names = {k.split("_test_", 1)[1] for d in all_metrics

@@ -14,8 +14,11 @@ the batch-level α quirk (α_t = α if mean(labels) < 0.5 else 1-α), kept
 exactly because it produced the paper's baseline numbers.
 
 Logits are taken to f32 before the log-softmax, whatever their dtype. The
-`*_traced` variants of the JAX module belong to the trial-parallel sweep and
-are not ported yet.
+`*_traced` variants take focal_gamma and label_smoothing as tensors (0-d,
+or one per trial under `torch.func.vmap`) and have no Python branch on
+them: the trial-parallel sweep (train/trial_parallel.py) vmaps them over
+trials. Class weights may be a tensor wherever they are taken (one per
+fold in the fold-parallel trainer).
 """
 
 from __future__ import annotations
@@ -43,6 +46,15 @@ def torch_smoothed_ce(logits, labels, label_smoothing: float = 0.0):
         return nll
     smooth = -logp.mean(dim=-1)
     return (1.0 - label_smoothing) * nll + label_smoothing * smooth
+
+
+def _class_weights(class_weights, device) -> torch.Tensor:
+    """The weights as an f32 tensor on `device`; a tensor passes as it is
+    (it may be batched under vmap)."""
+    if isinstance(class_weights, torch.Tensor):
+        return class_weights.float()
+    return torch.as_tensor(np.asarray(class_weights, np.float32),
+                           device=device)
 
 
 def _masked_mean(per_sample, mask):
@@ -87,9 +99,7 @@ def stage2_focal_loss(logits, labels, class_weights=None,
     loss = focal_weight * ce
 
     if class_weights is not None:
-        w = torch.as_tensor(np.asarray(class_weights, np.float32),
-                            device=loss.device)
-        loss = loss * w[labels.long()]
+        loss = loss * _pick_weights(class_weights, labels, loss.device)
 
     if focal_alpha is not None:
         labf = labels.float()
@@ -117,15 +127,90 @@ def stage2_weighted_ce(logits, labels, class_weights=None,
         if sample_mask is None:
             return per.mean()
         return _masked_mean(per, sample_mask)
-    w = torch.as_tensor(np.asarray(class_weights, np.float32),
-                        device=logp.device)
-    wi = w[labels.long()]
+    w = _class_weights(class_weights, logp.device)
+    wi = _pick_weights(w, labels, logp.device)
     smooth = -(logp * w[None, :]).sum(dim=-1) / C
     num = (1.0 - label_smoothing) * wi * nll + label_smoothing * smooth
     if sample_mask is None:
         return num.sum() / wi.sum()
     mask = torch.as_tensor(sample_mask, dtype=num.dtype, device=num.device)
     return (num * mask).sum() / torch.clamp((wi * mask).sum(), min=1e-9)
+
+
+def _pick_weights(class_weights, labels, device) -> torch.Tensor:
+    """w[labels[i]] for every row i (a gather, so that it also runs under
+    vmap with per-fold weights)."""
+    w = _class_weights(class_weights, device)
+    return w.gather(0, labels.long())
+
+
+def _safe_focal_base(x, gamma):
+    """x**gamma with a clean gradient at gamma == 0 (where the sequential
+    losses take the plain-CE branch): the where keeps x out of the power's
+    gradient when the exponent is zero, which avoids 0**-1 at x == 0."""
+    return torch.where(gamma > 0, x, 1.0) ** gamma
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A traced hyperparameter as an f32 tensor (a tensor, possibly batched
+    under vmap, passes as it is)."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def stage1_loss_traced(logits, labels, focal_gamma, label_smoothing,
+                       sample_mask=None):
+    """stage1_loss with focal_gamma / label_smoothing as tensors, without
+    Python branches: equal to stage1_loss at every (γ, ls), including the
+    branch points γ=0 (the focal factor is 1) and ls=0 (plain NLL)."""
+    gamma = _f32(focal_gamma, logits.device)
+    ls = _f32(label_smoothing, logits.device)
+    logp = _log_softmax(logits)
+    nll = -_pick(logp, labels)
+    smooth = -logp.mean(dim=-1)
+    ce = (1.0 - ls) * nll + ls * smooth
+    per = _safe_focal_base(1.0 - torch.exp(-ce), gamma) * ce
+    if sample_mask is None:
+        return per.mean()
+    return _masked_mean(per, sample_mask)
+
+
+def stage2_focal_loss_traced(logits, labels, class_weights, focal_alpha,
+                             focal_gamma, label_smoothing, sample_mask=None):
+    """stage2_focal_loss with focal_gamma / label_smoothing as tensors
+    (class_weights may be a tensor; focal_alpha stays a Python number: the
+    reference's sweeps never touch it)."""
+    gamma = _f32(focal_gamma, logits.device)
+    ls = _f32(label_smoothing, logits.device)
+    logp = _log_softmax(logits)
+    probs = torch.exp(logp)
+    C = logits.shape[-1]
+    smooth = torch.full_like(logp, 1.0) * (ls / (C - 1))
+    onehot = torch.nn.functional.one_hot(labels.long(), C).to(logp.dtype)
+    smooth = smooth * (1.0 - onehot) + (1.0 - ls) * onehot
+    p_t = _pick(probs, labels)
+    loss = _safe_focal_base(1.0 - p_t, gamma) * (-(smooth * logp).sum(dim=-1))
+    if class_weights is not None:
+        loss = loss * _pick_weights(class_weights, labels, loss.device)
+    if focal_alpha is not None:
+        labf = labels.float()
+        lab_mean = (labf.mean() if sample_mask is None
+                    else _masked_mean(labf, sample_mask))
+        loss = loss * torch.where(lab_mean < 0.5, focal_alpha,
+                                  1.0 - focal_alpha)
+    if sample_mask is None:
+        return loss.mean()
+    return _masked_mean(loss, sample_mask)
+
+
+def stage2_weighted_ce_traced(logits, labels, class_weights, label_smoothing,
+                              sample_mask=None):
+    """stage2_weighted_ce with label_smoothing as a tensor (its formula is
+    already branch-free; this keeps one traced API across the stages)."""
+    return stage2_weighted_ce(logits, labels, class_weights,
+                              _f32(label_smoothing, logits.device),
+                              sample_mask=sample_mask)
 
 
 def inverse_frequency_weights(labels, num_classes: int = 2) -> np.ndarray:

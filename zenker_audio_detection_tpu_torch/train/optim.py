@@ -22,8 +22,10 @@ nothing is updated in place. What `torch.optim.AdamW` with
     size multiplies;
   * the schedule is read at the count before it is incremented, so the
     first update uses lr(0).
-`adamw_init`/`adamw_apply` (traced hyperparameters) belong to the
-trial-parallel sweep and are not ported yet.
+`adamw_init`/`adamw_apply` restate the same chain with the learning rate,
+weight decay and beta2 as tensors (one per fold or trial under
+`torch.func.vmap`), in the JAX functions' arithmetic order; the fold- and
+trial-parallel trainers vmap them.
 """
 
 from __future__ import annotations
@@ -164,3 +166,54 @@ def make_optimizer(learning_rate: float, total_steps: int,
     """HF-Trainer-equivalent AdamW (max_grad_norm=1.0 is the HF default)."""
     return AdamW(linear_schedule(learning_rate, total_steps, warmup_ratio),
                  weight_decay, beta1, beta2, eps, max_grad_norm)
+
+
+# ---------------------------------------------------------------------------
+# AdamW with tensor hyperparameters, for the fold- and trial-parallel steps
+# ---------------------------------------------------------------------------
+#
+# `make_optimizer` fixes (beta2, weight_decay, schedule) when it is built,
+# which suits one configuration per step. The parallel trainers vmap ONE
+# update over folds or trials whose learning rates (and, for trials, weight
+# decays and beta2) differ, so those are tensors here. The arithmetic is the
+# JAX package's `adamw_apply`, in its order: clip by the global norm, the
+# moments, the bias corrections in f32, then p - lr * (m̂ / (sqrt(v̂) + eps)
+# + wd * mask * p).
+
+
+def adamw_init(params) -> dict:
+    """{"count": 0-d int32 zero, "mu": zeros, "nu": zeros}, on the
+    parameters' device."""
+    device = next(leaf for _, leaf in tree_items(params)).device
+    return {"count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params)}
+
+
+def adamw_apply(params, state, grads, *, lr, weight_decay, beta2,
+                beta1: float = 0.9, eps: float = 1e-8,
+                max_grad_norm: float = 1.0, mask_tree=None):
+    """(new_params, new_state). lr, weight_decay and beta2 may be tensors
+    (0-d, or batched under vmap); lr is the step size already scheduled.
+    mask_tree: decay_mask(params) (Python bools), computed by the caller
+    when params are batched."""
+    if mask_tree is None:
+        mask_tree = decay_mask(params)
+    g_norm = global_norm(grads)
+    grads = tree_map(
+        lambda g: torch.where(g_norm < max_grad_norm, g,
+                              (g / g_norm.to(g.dtype)) * max_grad_norm),
+        grads)
+    count = state["count"] + 1
+    mu = tree_map(lambda m, g: beta1 * m + (1.0 - beta1) * g,
+                  state["mu"], grads)
+    nu = tree_map(lambda v, g: beta2 * v + (1.0 - beta2) * g * g,
+                  state["nu"], grads)
+    bc1 = 1.0 - beta1 ** count.float()
+    bc2 = 1.0 - beta2 ** count.float()
+    new_params = tree_map(
+        lambda p, m, v, use_wd: p - lr * (
+            (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            + (weight_decay if use_wd else 0.0) * p),
+        params, mu, nu, mask_tree)
+    return new_params, {"count": count, "mu": mu, "nu": nu}

@@ -40,6 +40,18 @@ def _wandb_or_none(offline: bool):
         return None
 
 
+def active_wandb_run():
+    """The pre-existing `wandb.run` when the process was launched by
+    `wandb agent` (the sweep agent reuses it, as the reference does,
+    src/train_ast_stage2_cross_validation.py:901-917); None without wandb or
+    without a run."""
+    try:
+        import wandb
+    except ImportError:
+        return None
+    return wandb.run
+
+
 class _TBWriter:
     """TensorBoard scalar-event channel (reference: the HF Trainer writes
     TB event files under logging_dir=<output>/logs with logging_steps=20,
