@@ -126,7 +126,24 @@ fails the run loudly:
      memory, each fold's first-step loss against its own non-vmapped
      forward, every fold's artifacts; train.trial_parallel on fold 1 with
      three trials (ms/step, peak memory); and at a small f32 config both
-     against the sequential trainer (1e-4).
+     against the sequential trainer (1e-4);
+ 10. the user's workflow, the port's CLIs as subprocesses on the card: a
+     seeded tree of one-second WAVs (the patients of tests/test_splits.py,
+     an unmatched Idle patient) through cli.prepare_training_data and
+     cli.prepare_two_stage (each pathology patient in one test fold, each
+     class's per-fold counts within 1, Idle on its patient's side);
+     cli.compute_stats, one random full-width export per stage linked as
+     every fold's best, cli.test_stage1/2 --all in bf16 (each fold's
+     matrix bitwise the argmax of make_eval_step's logits on the same
+     batches, the aggregate their sum), a small f32 config on the card
+     against --device cpu (SMALL_F32_TOL); cli.analyze_roc_pr (each fold's
+     ROC-AUC within 1e-12 of a rank AUC of the same scores) and
+     cli.extract_thresholds on its payloads; cli.adapt_checkpoint to
+     max_length 128 with its drift check in f32 on the card, and the
+     adapted stages served by TwoStageEngine on phase 4's audio with the
+     counts zeroed just before and read just after (12 mha_packed launches
+     per stage-chunk at S = 146, no other kernel; "kernel" vs "torch"
+     attention within ENGINE_TOL).
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -2590,6 +2607,385 @@ def history_gap(tmp: str, a: str, b: str, fold: int) -> float:
                for k in ("loss", "f1", "accuracy"))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the user's workflow: data preparation, evaluation and analysis
+# ---------------------------------------------------------------------------
+
+# the patients of tests/test_splits.py:26-40: files per patient, and the
+# Idle patients (one without a pathology match); one-second noise clips at
+# the class's amplitude times a log-uniform factor of 0.1-10, so that the
+# classes overlap and the ROC-AUCs lie between 0 and 1
+WORKFLOW_PATIENTS = {
+    "Healthy": {f"H{i:02d}": 3 + (i % 4) for i in range(12)},
+    "Zenker": {f"Z{i:02d}": 2 + (i % 5) for i in range(11)},
+    "Idle": {**{f"H{i:02d}": 2 for i in range(0, 12, 2)},
+             **{f"Z{i:02d}": 1 for i in range(0, 11, 3)}, "X99": 2},
+}
+WORKFLOW_AMPLITUDE = {"Healthy": 0.05, "Zenker": 0.1, "Idle": 0.01}
+WORKFLOW_FOLDS = 5
+WORKFLOW_LABELS = {"stage1": ("Idle", "Swallow"),
+                   "stage2": ("Healthy", "Zenker")}
+# the analyzer's ROC-AUC against a rank (Mann-Whitney) AUC of the same
+# scores: the trapezoid sum and the pair count differ only in rounding
+ROC_AUC_TOL = 1e-12
+ADAPTED_LENGTH, ADAPTED_TOKENS = 128, 146
+
+
+def write_workflow_tree(root: str) -> str:
+    from zenker_audio_detection_tpu_torch.audio import io as aio
+
+    rng = np.random.default_rng(50)
+    tree = os.path.join(root, "swallowset")
+    for cls, patients in WORKFLOW_PATIENTS.items():
+        for pid, n in patients.items():
+            d = os.path.join(tree, cls, pid)
+            os.makedirs(d)
+            for k in range(n):
+                w = rng.standard_normal(16000) * WORKFLOW_AMPLITUDE[cls] \
+                    * 10 ** rng.uniform(-1, 1)
+                aio.write_wav(os.path.join(d, f"{pid}_clip{k}.wav"),
+                              w.astype(np.float32), 16000)
+    return tree
+
+
+def check_workflow_splits(cv: str) -> None:
+    """Every pathology patient in exactly one test fold, each class's
+    per-fold test counts within 1 of each other (stratified k-fold's
+    allocation), and every Idle clip on its patient's side."""
+    import importlib.util
+
+    metas = []
+    for fold in range(1, WORKFLOW_FOLDS + 1):
+        with open(os.path.join(cv, f"fold{fold}_meta.json")) as f:
+            metas.append(json.load(f))
+    tests = [s for m in metas for s in m["test_pathology_subjects"]]
+    patho = sorted({*WORKFLOW_PATIENTS["Healthy"], *WORKFLOW_PATIENTS[
+        "Zenker"]})
+    if sorted(tests) != patho:
+        raise AssertionError(f"test folds hold {sorted(tests)}, not each of "
+                             f"{patho} once")
+    per_class = {c: [sum(s.startswith(c[0]) for s in m[
+        "test_pathology_subjects"]) for m in metas]
+        for c in ("Healthy", "Zenker")}
+    if any(max(v) - min(v) > 1 for v in per_class.values()):
+        raise AssertionError(f"per-fold test patients {per_class}")
+    for fold, m in enumerate(metas, start=1):
+        for side in ("train", "test"):
+            subjects = set(m[f"{side}_pathology_subjects"])
+            xs = np.load(os.path.join(cv, f"{side}_x_fold{fold}.npy"))
+            idle = {p.split("/")[-2] for p in xs.tolist() if "/Idle/" in p}
+            if not idle <= subjects or "X99" in idle:
+                raise AssertionError(f"fold {fold} {side}: Idle patients "
+                                     f"{sorted(idle)} off their side")
+    log(f"[workflow] splits: {len(tests)} pathology patients, each in one "
+        f"test fold; test patients per fold {per_class}; Idle on its "
+        f"patient's side, X99 ignored; sklearn importable here: "
+        f"{importlib.util.find_spec('sklearn') is not None}")
+
+
+def export_stage(path: str, params, cfg, labels, mean: float,
+                 std: float) -> None:
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as L
+
+    convert.save_hf_model_dir(params, cfg, path, dict(enumerate(labels)))
+    L.save_feature_extractor_config(path, mean, std,
+                                    max_length=cfg.max_length)
+
+
+def link_folds(export: str, model_root: str) -> None:
+    """fold{k}/best of every fold: the export's files linked, so that one
+    full-size export serves all folds while each fold keeps its own
+    evaluation/ directory."""
+    for fold in range(1, WORKFLOW_FOLDS + 1):
+        best = os.path.join(model_root, f"fold{fold}", "best")
+        os.makedirs(best)
+        for name in os.listdir(export):
+            os.symlink(os.path.join(export, name), os.path.join(best, name))
+
+
+def rank_auc(y: np.ndarray, s: np.ndarray) -> float:
+    """P(score of a positive > score of a negative), ties counted as
+    halves (the Mann-Whitney statistic over the pair count)."""
+    pos = s[y == 1].astype(np.float64)[:, None]
+    neg = s[y == 0].astype(np.float64)[None, :]
+    return float(((pos > neg).sum() + 0.5 * (pos == neg).sum())
+                 / (pos.size * neg.size))
+
+
+def workflow_evaluation(torch, ast_mod, tmp: str, data: dict) -> dict:
+    """Exports one random full-size model per stage (stats from
+    cli.compute_stats on the card), links it as every fold's best, runs
+    cli.test_stage1/2 --all in bf16 and holds each fold's matrix to the
+    argmax of make_eval_step's logits on the same batches, the aggregate
+    to their sum; then a small f32 config on the card against the CPU.
+    Returns the exports."""
+    from zenker_audio_detection_tpu_torch.analysis import snippet_eval as SE
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as L
+    from zenker_audio_detection_tpu_torch.train import metrics, steps
+
+    exports = {}
+    for k, stage in enumerate(("stage1", "stage2")):
+        t0 = time.perf_counter()
+        run_child(["zenker_audio_detection_tpu_torch.cli.compute_stats",
+                   "--data-dir", data[stage], "--folds", str(WORKFLOW_FOLDS),
+                   "--device", "cuda"])
+        with open(os.path.join(data[stage], "stats_aggregate.json")) as f:
+            agg = json.load(f)
+        cfg = ast_mod.ASTConfig()
+        params = ast_mod.init_params(np.random.default_rng(60 + k), cfg)
+        exports[stage] = os.path.join(tmp, "exports", stage)
+        export_stage(exports[stage], params, cfg, WORKFLOW_LABELS[stage],
+                     agg["mean"], agg["std"])
+        model_root = os.path.join(tmp, "runs", f"ast_classifier_{stage}")
+        link_folds(exports[stage], model_root)
+        stats_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_child([f"zenker_audio_detection_tpu_torch.cli.test_{stage}",
+                   "--all", "--num-folds", str(WORKFLOW_FOLDS),
+                   "--data-dir", data[stage], "--model-root", model_root,
+                   "--results-dir", os.path.join(tmp, "results", stage),
+                   "--device", "cuda"])
+        eval_s = time.perf_counter() - t0
+
+        dev = torch.device("cuda")
+        dev_params = ast_mod.cast_params(params, torch.bfloat16, dev)
+        eval_step = steps.make_eval_step(cfg, dtype=torch.bfloat16)
+        fold_cms, n_clips = [], 0
+        for fold in range(1, WORKFLOW_FOLDS + 1):
+            paths = np.load(os.path.join(
+                data[stage], f"test_x_fold{fold}.npy")).tolist()
+            y = np.load(os.path.join(data[stage], f"test_y_fold{fold}.npy"))
+            mean, std = SE.load_mean_std(data[stage], fold, False)
+            feats = L.featurize_paths(paths, mean, std,
+                                      max_frames=cfg.max_length, device=dev)
+            logits = L._predict(eval_step, dev_params, feats, 8, dev)
+            want = metrics.confusion_matrix(y, logits.argmax(1), [0, 1])
+            got = np.load(os.path.join(model_root, f"fold{fold}", "best",
+                                       "evaluation", "confusion_matrix.npy"))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{stage} fold {fold}: CLI matrix "
+                                     f"{got.tolist()} != the in-process "
+                                     f"argmax's {want.tolist()}")
+            fold_cms.append(got)
+            n_clips += len(paths)
+        agg_cm = np.load(os.path.join(model_root, "cv_aggregate_evaluation",
+                                      "confusion_matrix.npy"))
+        if not np.array_equal(agg_cm, sum(fold_cms)):
+            raise AssertionError(f"{stage}: aggregate {agg_cm.tolist()} is "
+                                 f"not the sum of the folds' matrices")
+        del dev_params
+        log(f"[workflow] {stage}: compute_stats + export {stats_s:.1f} s "
+            f"(mean {agg['mean']:.4f}, std {agg['std']:.4f}); "
+            f"cli.test_{stage} --all, full width, bf16, {n_clips} clips in "
+            f"{WORKFLOW_FOLDS} folds: {eval_s:.1f} s; each fold's matrix "
+            f"bitwise the in-process argmax's, aggregate "
+            f"{agg_cm.tolist()} = their sum")
+
+    # a small f32 config: the CLI on the card against --device cpu
+    small = ast_mod.ASTConfig(**LOOP_SMALL)
+    params = ast_mod.init_params(np.random.default_rng(62), small)
+    gen = np.random.default_rng(63)
+    params["head"]["dense"]["kernel"] = torch.from_numpy(gen.standard_normal(
+        params["head"]["dense"]["kernel"].shape).astype(np.float32))
+    small_dir = os.path.join(tmp, "exports", "small")
+    export_stage(small_dir, params, small, WORKFLOW_LABELS["stage1"], -1.0,
+                 3.5)
+    cms, logits = {}, {}
+    paths = np.load(os.path.join(data["stage1"], "test_x_fold1.npy")).tolist()
+    mean, std = SE.load_mean_std(data["stage1"], 1, False)
+    for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+        root = os.path.join(tmp, f"small_{tag}", "ast_classifier_stage1")
+        os.makedirs(os.path.join(root, "fold1"))
+        os.symlink(small_dir, os.path.join(root, "fold1", "best"),
+                   target_is_directory=True)
+        run_child(["zenker_audio_detection_tpu_torch.cli.test_stage1",
+                   "--fold", "1", "--f32", "--data-dir", data["stage1"],
+                   "--model-root", root, "--results-dir",
+                   os.path.join(tmp, f"small_results_{tag}"),
+                   "--device", device])
+        cms[tag] = np.load(os.path.join(small_dir, "evaluation",
+                                           "confusion_matrix.npy"))
+        dev = torch.device(device)
+        feats = L.featurize_paths(paths, mean, std,
+                                  max_frames=small.max_length, device=dev)
+        logits[tag] = L._predict(
+            steps.make_eval_step(small, dtype=torch.float32),
+            ast_mod.cast_params(params, torch.float32, dev), feats, 8, dev)
+    err = float(np.abs(logits["card"] - logits["cpu"]).max())
+    margin = float(np.abs(np.diff(logits["cpu"], axis=1)).min())
+    log(f"[workflow] small f32 config, cli.test_stage1 --f32 on the card vs "
+        f"--device cpu: matrices {cms['card'].tolist()} / "
+        f"{cms['cpu'].tolist()}; logits max abs err {err:.3g} (tolerance "
+        f"{SMALL_F32_TOL}), smallest logit margin {margin:.3g}")
+    if not err <= SMALL_F32_TOL or (margin > SMALL_F32_TOL and not
+                                    np.array_equal(cms["card"], cms["cpu"])):
+        raise AssertionError("the f32 evaluator on the card disagrees with "
+                             "the CPU")
+    return exports
+
+
+def workflow_roc(torch, tmp: str, data: dict) -> None:
+    """cli.analyze_roc_pr on the fold directories (bf16, on the card), each
+    fold's roc_auc against a rank AUC of the same scores, then
+    cli.extract_thresholds on the two payloads."""
+    from zenker_audio_detection_tpu_torch.analysis import roc_pr
+
+    payloads = {}
+    for stage in ("stage1", "stage2"):
+        template = os.path.join(tmp, "runs", f"ast_classifier_{stage}",
+                                "fold{fold}", "best")
+        payloads[stage] = os.path.join(tmp, f"roc_pr_{stage}.json")
+        t0 = time.perf_counter()
+        run_child(["zenker_audio_detection_tpu_torch.cli.analyze_roc_pr",
+                   "--stage", stage, "--data-dir", data[stage],
+                   "--model-root-template", template, "--num-folds",
+                   str(WORKFLOW_FOLDS), "--output-json", payloads[stage],
+                   "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        with open(payloads[stage]) as f:
+            payload = json.load(f)
+        errs = []
+        for rep in payload["fold_reports"]:
+            paths, y, split = roc_pr.load_split(data[stage], rep["fold"],
+                                                "val")
+            scores = roc_pr.positive_scores(
+                template.format(fold=rep["fold"]), paths, 16,
+                torch.bfloat16, "cuda")
+            errs.append(abs(rep["roc_auc"] - rank_auc(np.asarray(y),
+                                                      scores)))
+            if rep["split"] != split or not errs[-1] <= ROC_AUC_TOL:
+                raise AssertionError(f"{stage} fold {rep['fold']}: roc_auc "
+                                     f"{rep['roc_auc']} vs the rank AUC, "
+                                     f"gap {errs[-1]}")
+        aucs = [round(r["roc_auc"], 4) for r in payload["fold_reports"]]
+        log(f"[workflow] {stage}: cli.analyze_roc_pr {seconds:.1f} s; fold "
+            f"ROC-AUCs {aucs} ({payload['fold_reports'][0]['split']} "
+            f"splits), largest gap "
+            f"to the rank AUC {max(errs):.3g} (tolerance {ROC_AUC_TOL})")
+    out = os.path.join(tmp, "thresholds.json")
+    run_child(["zenker_audio_detection_tpu_torch.cli.extract_thresholds",
+               "--stage1-metrics", payloads["stage1"], "--stage2-metrics",
+               payloads["stage2"], "--output-config", out])
+    with open(out) as f:
+        folds = json.load(f)["folds"]
+    if sorted(folds, key=int) != [str(k) for k in range(
+            1, WORKFLOW_FOLDS + 1)] or not all(
+            {"stage1", "stage2"} <= set(v) for v in folds.values()):
+        raise AssertionError(f"threshold config folds {folds}")
+    log(f"[workflow] cli.extract_thresholds read both payloads: "
+        f"{len(folds)} folds with stage-1 and stage-2 thresholds")
+
+
+def workflow_adapt_and_serve(A, C, torch, tmp: str, data: dict,
+                             exports: dict) -> None:
+    """cli.adapt_checkpoint of both exports to max_length 128, its drift
+    check scored in f32 on the card; the adapted stages served by the
+    engine with the "kernel" attention (counts zeroed just before, read
+    just after) against the "torch" attention."""
+    from zenker_audio_detection_tpu_torch.models import convert
+    from zenker_audio_detection_tpu_torch.train import loop as L
+
+    specs = []
+    for stage in ("stage1", "stage2"):
+        out = os.path.join(tmp, "adapted", stage)
+        t0 = time.perf_counter()
+        proc = run_child([
+            "zenker_audio_detection_tpu_torch.cli.adapt_checkpoint",
+            exports[stage], out, "--max-length", str(ADAPTED_LENGTH),
+            "--drift-data", data[stage], "--allow-drift", "--device",
+            "cuda"])
+        drift = [line for line in proc.stdout.decode().splitlines()
+                 if "ranking drift on" in line]
+        if len(drift) != 1:
+            raise AssertionError(f"{stage}: no drift check ran:\n"
+                                 f"{proc.stdout.decode()[-2000:]}")
+        log(f"[workflow] {stage}: cli.adapt_checkpoint to max_length "
+            f"{ADAPTED_LENGTH} in {time.perf_counter() - t0:.1f} s; "
+            f"{drift[0].split(': ', 1)[1]} (f32 on the card)")
+        params, config = convert.load_hf_model_dir(out)
+        mean, std = L.load_feature_extractor_config(out)
+        if config.seq_length != ADAPTED_TOKENS:
+            raise AssertionError(f"{stage}: {config.seq_length} tokens")
+        specs.append(C.StageSpec(params, config, mean, std,
+                                 WORKFLOW_LABELS[stage]))
+
+    audio = seeded_audio(60.0, seed=3)
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    batch = 128
+    kw = dict(batch_size=batch, dtype=torch.bfloat16, stage2_mode="all")
+    engine = C.TwoStageEngine(*specs, C.CascadeConfig(
+        attention_impl="kernel", **kw), device="cuda")
+    engine.window_probs(audio)  # warm-up
+    launch = A._launch
+    shapes = []
+
+    def spy(kind, q, *args):
+        if kind == "mha_packed":
+            shapes.append(tuple(q.shape))
+        return launch(kind, q, *args)
+
+    # ---- the adapted stages' path: counts zeroed just before, read after
+    zero_counts(A)
+    A._launch = spy  # records the shapes, then launches as before
+    try:
+        p1, p2 = engine.window_probs(audio)
+    finally:
+        A._launch = launch
+    got = counts(A)
+    # -------------------------------------------------------------------
+    chunks = -(-W // batch)
+    expected = 12 * 2 * chunks
+    others = {k: n for k, n in got.items() if k != "mha_packed"}
+    log(f"[workflow] adapted stages served, {W} windows: mha_packed "
+        f"launches {got['mha_packed']} (expected {expected} = 12 per "
+        f"stage-chunk), shapes {sorted(set(shapes))}; the other kernels "
+        f"{others}")
+    if got["mha_packed"] != expected or any(others.values()) or \
+            {s[1] for s in shapes} != {ADAPTED_TOKENS}:
+        raise AssertionError("the adapted stages' launches are wrong")
+    check_probs(p1, W, "adapted stage 1")
+    check_probs(p2, W, "adapted stage 2")
+    reference = C.TwoStageEngine(*specs, C.CascadeConfig(
+        attention_impl="torch", **kw), device="cuda")
+    q1, q2 = reference.window_probs(audio)
+    err = max(np.abs(q1 - p1).max(), np.abs(q2 - p2).max())
+    log(f"[workflow] adapted stages, kernel vs torch attention: max abs "
+        f"err {err:.3g} (tolerance {ENGINE_TOL})")
+    if not err <= ENGINE_TOL:
+        raise AssertionError(f"adapted engines disagree: {err}")
+
+
+def phase_workflow(A, C, ast_mod, torch) -> None:
+    """Phase 10: the user's workflow through the port's CLIs, as
+    subprocesses on the card: prepare the splits, evaluate at full width,
+    ROC/PR and thresholds, adapt and serve."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_workflow_tree(tmp)
+        cv = os.path.join(tmp, "data_ast_cv")
+        data = {s: os.path.join(tmp, f"data_ast_{s}")
+                for s in ("stage1", "stage2")}
+        t0 = time.perf_counter()
+        run_child(["zenker_audio_detection_tpu_torch.cli."
+                   "prepare_training_data", "--dataset-root", tree,
+                   "--output-dir", cv, "--num-folds", str(WORKFLOW_FOLDS)])
+        run_child(["zenker_audio_detection_tpu_torch.cli.prepare_two_stage",
+                   "--cv-dir", cv, "--out-stage1", data["stage1"],
+                   "--out-stage2", data["stage2"], "--val-ratio", "0.25",
+                   "--num-folds", str(WORKFLOW_FOLDS)])
+        clips = sum(sum(p.values()) for p in WORKFLOW_PATIENTS.values())
+        log(f"[workflow] cli.prepare_training_data + cli.prepare_two_stage "
+            f"on {clips} clips: {time.perf_counter() - t0:.1f} s")
+        check_workflow_splits(cv)
+        exports = workflow_evaluation(torch, ast_mod, tmp, data)
+        workflow_roc(torch, tmp, data)
+        workflow_adapt_and_serve(A, C, torch, tmp, data, exports)
+    log(f"[workflow] phase 10 (data preparation, evaluation, analysis): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2649,6 +3045,7 @@ def main() -> int:
     phase_parallel(A, ast_mod, torch, smi, loop_ms)
     log(f"[parallel] phase 9 (audio I/O, fold- and trial-parallel) "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_workflow(A, C, ast_mod, torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

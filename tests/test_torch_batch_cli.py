@@ -142,6 +142,28 @@ def test_run_batch_matches_jax(study, tmp_path, capsys):
                     ).stat().st_size > 0
 
 
+@pytest.mark.parametrize("impl", ["kernel", "torch"])
+def test_run_batch_attention_impl(study, tmp_path, monkeypatch, impl):
+    """--attention-impl reaches the fold's engine (default kernel; torch is
+    the counterpart of the JAX driver's XLA attention and serves head
+    widths the kernels do not take); the JSONs equal the JAX driver's."""
+    from zenker_audio_detection_tpu_torch.infer import cascade
+
+    seen, engine = [], cascade.TwoStageEngine
+
+    def spy(s1, s2, config, **kw):
+        seen.append(config.attention_impl)
+        return engine(s1, s2, config, **kw)
+
+    monkeypatch.setattr(cascade, "TwoStageEngine", spy)
+    extra = [] if impl == "kernel" else ["--attention-impl", impl]
+    run_batch_2stage.main(batch_args(study, 1, tmp_path / "port",
+                                     "--device", "cpu", *extra))
+    assert seen == [impl]
+    jbatch.main(batch_args(study, 1, tmp_path / "jax"))
+    json_close(load_outputs(tmp_path / "port"), load_outputs(tmp_path / "jax"))
+
+
 def test_run_batch_skips_existing_and_reruns_corrupt(study, tmp_path,
                                                      capsys):
     args = batch_args(study, 1, tmp_path, "--device", "cpu")

@@ -149,3 +149,16 @@ def test_window_features_from_frames_rejects_out_of_range(starts):
 def test_logmel_frames_rejects_zero_frames():
     with pytest.raises(ValueError, match="too short"):
         F.logmel_frames(torch.zeros(100), 0)
+
+
+@pytest.mark.parametrize("kw", [{}, {"sampling_rate": 8000,
+                                     "max_length": 128, "mean": -1.15,
+                                     "std": 3.53, "do_normalize": False}])
+def test_fbank_config_to_dict_matches_jax(kw):
+    """FbankConfig.to_dict: the dataclass fields with
+    feature_extractor_type "ASTFeatureExtractor", as JAX's."""
+    got = F.FbankConfig(**kw).to_dict()
+    want = JF.FbankConfig(**kw).to_dict()
+    assert got == want
+    assert list(got) == list(want)
+    assert got["feature_extractor_type"] == "ASTFeatureExtractor"

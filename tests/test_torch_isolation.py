@@ -20,6 +20,16 @@ from zenker_audio_detection_tpu_torch.ops import attention as A
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the modules of the data preparation, evaluation and analysis slice
+SLICE_11 = tuple(f"zenker_audio_detection_tpu_torch.{m}" for m in (
+    "data.splits", "data.prepare", "analysis.snippet_eval", "analysis.roc_pr",
+    "analysis.validate", "analysis.drift_bench", "cli.prepare_dataset",
+    "cli.prepare_training_data", "cli.prepare_two_stage", "cli.test_stage1",
+    "cli.test_stage2", "cli.analyze_roc_pr", "cli.adapt_checkpoint",
+    "cli.extract_thresholds", "cli.plot_confusion_matrices",
+    "cli.validate_real", "cli.drift"))
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(port.__path__,
                                                        port.__name__ + "."))
@@ -54,7 +64,8 @@ def test_port_imports_no_jax():
             "zenker_audio_detection_tpu_torch.train.fold_parallel",
             "zenker_audio_detection_tpu_torch.train.trial_parallel",
             "zenker_audio_detection_tpu_torch.tune.sweep",
-            "zenker_audio_detection_tpu_torch.cli.sweep"} <= set(mods)
+            "zenker_audio_detection_tpu_torch.cli.sweep",
+            *SLICE_11} <= set(mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"
@@ -270,3 +281,45 @@ def test_native_binding_never_reads_the_make_build(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_slice_modules_load_no_optional_packages():
+    """The data preparation, evaluation and analysis modules import in a
+    fresh interpreter without loading sklearn, transformers or matplotlib
+    (the card's machine may have none of them: only the converter check
+    and the plots need the last two, inside their functions), jax or the
+    JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(SLICE_11)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('sklearn', 'transformers',\n"
+        "                                    'matplotlib', 'jax', 'optax',\n"
+        "                                    'zenker_audio_detection_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_evaluation_entry_points_without_device_need_cuda(tmp_path):
+    """test_stage1 and analyze_roc_pr default to the card: without one
+    they raise before they read or write anything."""
+    from zenker_audio_detection_tpu_torch.cli import analyze_roc_pr
+    from zenker_audio_detection_tpu_torch.cli import test_stage1
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_stage1.main(["--all", "--data-dir", str(tmp_path / "d"),
+                          "--model-root", str(tmp_path / "runs"),
+                          "--results-dir", str(tmp_path / "results")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        analyze_roc_pr.main(["--data-dir", str(tmp_path / "d"),
+                             "--model-root-template",
+                             str(tmp_path / "runs" / "fold{fold}"),
+                             "--output-json", str(tmp_path / "o.json")])
+    assert os.listdir(tmp_path) == []

@@ -2,7 +2,7 @@
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 tools/smoke_phase.py [--phases train_alone train loop serving
-                                   audio parallel]
+                                   audio parallel workflow]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
@@ -14,7 +14,9 @@ chip_smoke.py's main would but without the phases before them:
 windows/s, emit latency and mha_packed at the streaming buckets), `audio`
 (phase 9's native library, resamplers, loader and vocoder) and `parallel`
 (phase 9's fold- and trial-parallel training, which sets its ms per step
-beside the `loop` phase's when that ran first, else beside nan).
+beside the `loop` phase's when that ran first, else beside nan) and
+`workflow` (phase 10: the data preparation, evaluation and analysis CLIs
+as subprocesses, and the adapted stages served).
 After each phase it prints the caching allocator's counters (device
 allocations and frees, allocation retries, reserved and allocated GB), so
 two checkouts' phases can be compared alone and after each other in one
@@ -30,7 +32,8 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("train_alone", "train", "loop", "serving", "audio", "parallel")
+PHASES = ("train_alone", "train", "loop", "serving", "audio", "parallel",
+          "workflow")
 
 
 def main() -> int:
@@ -67,6 +70,8 @@ def main() -> int:
             chip_smoke.phase_audio_io(torch, smi)
         elif phase == "parallel":
             chip_smoke.phase_parallel(A, ast_mod, torch, smi, loop_ms)
+        elif phase == "workflow":
+            chip_smoke.phase_workflow(A, C, ast_mod, torch)
         else:
             print(chip_smoke.phase_serving(A, C, ast_mod, torch, smi),
                   flush=True)

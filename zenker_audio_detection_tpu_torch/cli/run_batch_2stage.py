@@ -81,6 +81,10 @@ def main(argv=None, mesh=None, device=None):
                     help="print planned patients without running")
     ap.add_argument("--disable-cache", action="store_true")
     ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--attention-impl", choices=["kernel", "torch"],
+                    default="kernel",
+                    help="kernel: the hand-written CUDA attention kernel; "
+                         "torch: its plain PyTorch version")
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
     ap.add_argument("--num-devices", type=int, default=None,
@@ -137,7 +141,7 @@ def main(argv=None, mesh=None, device=None):
         # (run_batch_simple_2stage.py SCRIPT_NAME), whose plot artifacts
         # are named {pid}_2stage_plot_cached.*
         plot_cached_name=True,
-        stage2_mode="gated", attention_impl="kernel",
+        stage2_mode="gated", attention_impl=args.attention_impl,
         device=device or args.device, int8=args.int8, trace_dir=None,
         show_first_n=0, pattern=args.pattern,
         long_audio_root=args.long_audio_root,

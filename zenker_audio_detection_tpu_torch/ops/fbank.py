@@ -136,6 +136,11 @@ class FbankConfig:
     mean: float = AUDIOSET_MEAN
     std: float = AUDIOSET_STD
 
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["feature_extractor_type"] = "ASTFeatureExtractor"
+        return d
+
 
 def frame_indices(n_frames: int) -> np.ndarray:
     """(n_frames, FRAME_LENGTH) int32 sample-index matrix of snip-edges
