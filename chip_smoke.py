@@ -143,7 +143,25 @@ fails the run loudly:
      adapted stages served by TwoStageEngine on phase 4's audio with the
      counts zeroed just before and read just after (12 mha_packed launches
      per stage-chunk at S = 146, no other kernel; "kernel" vs "torch"
-     attention within ENGINE_TOL).
+     attention within ENGINE_TOL);
+ 11. mesh: the port's launcher (parallel/launch.py) starts ranks of a
+     process group in child processes, which run parallel/checks.py. (a)
+     One NCCL rank on cuda:0: phase 4's full-width engine (batch 128,
+     bf16, "kernel" attention, 60 s audio) built on data_mesh(), both
+     modes, its probabilities bitwise the single-device engine's and its
+     mha_packed launches phase 4's count (counts set to 0 in the rank just
+     before and read just after); then one full-width data-parallel step
+     (batch 16, bf16, the "kernel" route, the gradient summed over NCCL),
+     its loss and gradients within phase 6's tolerances of the
+     single-device step. (b) Two gloo ranks sharing cuda:0 (one card:
+     NCCL refuses two ranks on one card): the full-width engine, 64 rows
+     a rank, within ENGINE_TOL of the single-device engine, mha_packed
+     launched on each rank; at a small f32 config the engine, a
+     data-parallel step, a two-fold fold-parallel step with its rows over
+     the two ranks and the ("dcn", "data") 2 x 1 step, each within
+     MESH_F32_TOL of one device; make_mesh(2) on the one-card machine
+     raises "requested 2 devices, only 1 visible". Each maximum
+     difference and the phase's seconds are logged.
 
 Three lines end the output: {"kernels": [...]} with each kernel's numbers,
 then nvidia-smi's name and power limit of the card, then {"ok": true,
@@ -275,6 +293,11 @@ POISON_CASES = ((1, 65, 64, 2), (2, 300, 128, 4))
 # and in val and test; 2 epochs of 4 steps at batch 16
 LOOP_TRAIN_PER_CLASS, LOOP_EVAL_PER_CLASS = 32, 8
 LOOP_EPOCHS, LOOP_BATCH = 2, 16
+# phase 11: a small f32 config's probabilities, losses and parameters over
+# two ranks against one device (tests/test_multichip.py's 1e-5)
+MESH_F32_TOL = 1e-5
+MESH_SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                  intermediate_size=128, max_length=128, num_labels=2)
 # phase 7's small f32 config for the resume check
 LOOP_SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                   intermediate_size=128, max_length=128)
@@ -2986,6 +3009,279 @@ def phase_workflow(A, C, ast_mod, torch) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: ranks of a process group on the one card
+# ---------------------------------------------------------------------------
+
+
+def rank_results(results: dict, what: str) -> dict:
+    """{name: result} of a checks.sequence run; an error in a rank fails."""
+    out = {}
+    for name, (status, value) in results.items():
+        if status != "ok":
+            raise AssertionError(f"{what} {name}: {value}")
+        out[name] = value
+    return out
+
+
+def spawn_checks(calls: dict, nprocs: int, device: str,
+                 backend: str | None = None) -> dict:
+    from zenker_audio_detection_tpu_torch.parallel import checks, launch
+
+    out = launch.spawn(checks.sequence, (list(calls.values()),), nprocs,
+                       device, backend)
+    return rank_results(dict(zip(calls, out)), f"{nprocs} {device} ranks")
+
+
+def flat_max_diff(a: dict, b: dict) -> float:
+    from zenker_audio_detection_tpu_torch.models import convert
+
+    fa, fb = convert._flatten_tree(a), convert._flatten_tree(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError("parameter trees differ in their leaves")
+    return max(float(np.abs(fa[k] - fb[k]).max()) for k in fa)
+
+
+def grad_rel_diff(got: dict, want) -> float:
+    """The largest per-leaf |got - want| / max(|want|, 1e-3) in norms."""
+    from zenker_audio_detection_tpu_torch.models import convert
+
+    fg = convert._flatten_tree(got)
+    fw = convert._flatten_tree(convert.params_to_numpy(want))
+    return max(float(np.linalg.norm(fg[k] - fw[k]))
+               / max(float(np.linalg.norm(fw[k])), 1e-3) for k in fw)
+
+
+def check_rank_launches(what: str, launches: list, want: dict) -> None:
+    for r, seen in enumerate(launches):
+        got = {k: v for k, v in seen.items() if v}
+        if got != want:
+            raise AssertionError(f"{what}: rank {r} launched {got}, "
+                                 f"expected {want}")
+
+
+def mesh_one_nccl_rank(C, ast_mod, torch, audio, gate) -> None:
+    """(a): one NCCL rank on cuda:0, full width."""
+    from zenker_audio_detection_tpu_torch.parallel import checks
+    from zenker_audio_detection_tpu_torch.train import optim, steps
+
+    delta, threshold = gate
+    batch = 128
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    layers = ast_mod.ASTConfig().num_hidden_layers
+    stages = {"all": ({"seed": 1}, {"seed": 2, "labels": ("Healthy",
+                                                          "Zenker")}),
+              "gated": ({"seed": 1, "head_bias_shift": delta},
+                        {"seed": 2, "labels": ("Healthy", "Zenker")})}
+    configs = {mode: C.CascadeConfig(
+        batch_size=batch, dtype=torch.bfloat16, stage2_mode=mode,
+        attention_impl="kernel",
+        stage1_threshold=threshold if mode == "gated" else 0.5)
+        for mode in stages}
+    B = TRAIN_SHAPE[0]
+    rng = np.random.default_rng(8)
+    cfg = ast_mod.ASTConfig()
+    feats = rng.standard_normal((B, cfg.max_length, cfg.num_mel_bins)
+                                ).astype(np.float32)
+    labels = rng.permutation(np.arange(B) % 2).astype(np.int64)
+    loss = ("stage1", {"focal_gamma": 2.0, "label_smoothing": 0.07})
+    calls = {**{f"engine_{mode}": ("engine_probs",
+                                   (*stages[mode], audio, configs[mode],
+                                    "cuda"), {"warmup": True})
+                for mode in stages},
+             "step": ("train_step", ({"seed": 7}, None, feats, labels, loss,
+                                     "cuda"),
+                      {"dtype": torch.bfloat16, "attention_impl": "kernel",
+                       "with_params": False})}
+    t0 = time.perf_counter()
+    got = spawn_checks(calls, 1, "cuda")
+    log(f"[mesh] (a) one NCCL rank on cuda:0: {time.perf_counter() - t0:.1f}"
+        f" s for the spawn, the engines and the step")
+    total = 0
+    for mode in stages:
+        r = got[f"engine_{mode}"]
+        single = C.TwoStageEngine(*(checks.seeded_spec(**s)
+                                    for s in stages[mode]),
+                                  configs[mode], device="cuda")
+        p1, p2 = single.window_probs(audio)
+        n_gated = (len(single._gate_indices(p1)) if mode == "gated" else W)
+        want = layers * (-(-W // batch) + -(-n_gated // batch))
+        check_rank_launches(f"(a) engine {mode}", r["launches"],
+                            {"mha_packed": want})
+        total += want
+        for a, b, what in ((r["p1"], p1, "stage1"), (r["p2"], p2, "stage2")):
+            check_probs(a, W, f"(a) {mode}/{what}")
+            err = float(np.abs(a - b).max())
+            log(f"[mesh] (a) engine {mode}/{what} on a 1-rank NCCL mesh vs "
+                f"one device: max abs diff {err:.3g} (bitwise expected)")
+            if err != 0.0:
+                raise AssertionError(f"(a) {mode} {what} not bitwise: {err}")
+        del single
+    log(f"[mesh] (a) mha_packed launches in the rank: {total} (phase 4's "
+        f"count)")
+    step = got["step"]
+    spec = checks.seeded_spec(7)
+    params = tree_to(spec.params, device="cuda")
+    vg = steps.make_value_and_grad(
+        spec.config, checks.make_loss(loss[0], **loss[1]),
+        dtype=torch.bfloat16, attention_impl="kernel")
+    (lv, _), g = vg(params, torch.from_numpy(feats).cuda(),
+                    torch.from_numpy(labels).cuda())
+    loss_err = abs(step["loss"] - float(lv))
+    grad_err = grad_rel_diff(step["grads"], optim.tree_map(
+        lambda t: t.cpu(), g))
+    log(f"[mesh] (a) full-width data-parallel step (batch 16, bf16, kernel "
+        f"route, NCCL all-reduce) vs one device: loss {step['loss']:.6f} vs "
+        f"{float(lv):.6f} (diff {loss_err:.3g}, tolerance {TRAIN_LOSS_TOL}),"
+        f" worst gradient leaf relative {grad_err:.3g} (tolerance "
+        f"{TRAIN_GRAD_REL_TOL}); rank launches {step['launches']}")
+    check_rank_launches("(a) step", step["launches"], {
+        "mha_packed_lse": 2 * layers, "mha_packed_bwd_dq": layers,
+        "mha_packed_bwd_dkdv": layers})
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError("(a) the data-parallel step disagrees")
+    del params, g
+
+
+def mesh_two_gloo_ranks(C, ast_mod, torch, audio) -> None:
+    """(b): two gloo ranks sharing cuda:0."""
+    from zenker_audio_detection_tpu_torch.parallel import checks
+    from zenker_audio_detection_tpu_torch.train import (fold_parallel, optim,
+                                                        steps)
+
+    batch = 128
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    layers = ast_mod.ASTConfig().num_hidden_layers
+    stages = ({"seed": 1}, {"seed": 2, "labels": ("Healthy", "Zenker")})
+    full_cfg = C.CascadeConfig(batch_size=batch, dtype=torch.bfloat16,
+                               stage2_mode="all", attention_impl="kernel")
+    small = ast_mod.ASTConfig(**MESH_SMALL)
+    small_stages = tuple(dict(s, config=small, seed=s["seed"] + 20)
+                         for s in stages)
+    small_cfg = C.CascadeConfig(batch_size=16, dtype=torch.float32,
+                                stage2_mode="all", attention_impl="kernel")
+    rng = np.random.default_rng(21)
+    feats = rng.standard_normal((16, 128, 128)).astype(np.float32)
+    labels = np.array([0, 0, 0, 1, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1],
+                      np.int64)
+    loss = ("focal", {"class_weights": np.array([0.7, 1.6], np.float32)})
+    params = ast_mod.init_params(np.random.default_rng(22), small)
+    folds_feats = rng.standard_normal((2, 16, 128, 128)).astype(np.float32)
+    folds_labels = np.stack([labels, labels[::-1].copy()])
+    folds_mask = np.ones((2, 16), np.float32)
+    folds_mask[1, 12:] = 0.0
+    calls = {"engine_full": ("engine_probs", (*stages, audio, full_cfg,
+                                              "cuda:0"), {}),
+             "engine_small": ("engine_probs", (*small_stages, audio,
+                                               small_cfg, "cuda:0"), {}),
+             "step": ("train_step", (params, small, feats, labels, loss,
+                                     "cuda:0"), {}),
+             "step_dcn": ("train_step", (params, small, feats, labels, loss,
+                                         "cuda:0"), {"num_slices": 2}),
+             "folds": ("stacked_step", (params, small, folds_feats,
+                                        folds_labels, folds_mask, "cuda:0"),
+                       {})}
+    t0 = time.perf_counter()
+    got = spawn_checks(calls, 2, "cuda:0", backend="gloo")
+    log(f"[mesh] (b) two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f}"
+        f" s for the spawn and the checks")
+    for key, st, cfg, tol in (("engine_full", stages, full_cfg, ENGINE_TOL),
+                              ("engine_small", small_stages, small_cfg,
+                               MESH_F32_TOL)):
+        r = got[key]
+        single = C.TwoStageEngine(*(checks.seeded_spec(**s) for s in st),
+                                  cfg, device="cuda")
+        p1, p2 = single.window_probs(audio)
+        err = max(float(np.abs(r["p1"] - p1).max()),
+                  float(np.abs(r["p2"] - p2).max()))
+        n_layers = st[0].get("config", ast_mod.ASTConfig()).num_hidden_layers
+        check_rank_launches(f"(b) {key}", r["launches"], {
+            "mha_packed": 2 * n_layers * -(-W // cfg.batch_size)})
+        log(f"[mesh] (b) {key}: {cfg.batch_size // 2} rows a rank, max abs "
+            f"diff vs one device {err:.3g} (tolerance {tol}); mha_packed "
+            f"launches per rank {[x['mha_packed'] for x in r['launches']]}")
+        if not err <= tol:
+            raise AssertionError(f"(b) {key} disagrees with one device")
+        del single
+    tx = optim.make_optimizer(1e-3, 10, 0.1, 0.01)
+    vg = steps.make_value_and_grad(small, checks.make_loss(loss[0], **loss[1]),
+                                   dtype=torch.float32)
+    p = tree_to(params, device="cuda")
+    (lv, _), g = vg(p, torch.from_numpy(feats).cuda(),
+                    torch.from_numpy(labels).cuda())
+    u, _ = tx.update(g, tx.init(p), p)
+    one = checks._tree_numpy(tree_to(optim.apply_updates(p, u),
+                                     device="cpu"))
+    for key in ("step", "step_dcn"):
+        r = got[key]
+        loss_err = abs(r["loss"] - float(lv))
+        params_err = flat_max_diff(r["params"], one)
+        log(f"[mesh] (b) {key} (mesh {r['mesh_shape']}), small f32: loss "
+            f"diff {loss_err:.3g}, parameters max abs diff {params_err:.3g} "
+            f"vs one rank (tolerance {MESH_F32_TOL}); replicas differ by "
+            f"{r['replica_diff']:.3g}")
+        if not (loss_err <= MESH_F32_TOL and params_err <= MESH_F32_TOL
+                and r["replica_diff"] == 0.0):
+            raise AssertionError(f"(b) {key} disagrees with one device")
+    folds = got["folds"]
+    stacked = fold_parallel.stack(tree_to(params, device="cuda"), 2,
+                                  torch.device("cuda"))
+    step = fold_parallel.make_stacked_train_step(
+        small, _mesh_fold_loss, optim.decay_mask(params),
+        dtype=torch.float32, weight_decay=0.01, beta2=0.98)
+    hp = {"lr": torch.full((2,), 1e-3, device="cuda"),
+          "class_w": torch.ones((2, 2), device="cuda")}
+    new, _, per = step(stacked, torch.func.vmap(optim.adamw_init)(stacked),
+                       torch.from_numpy(folds_feats).cuda(),
+                       torch.from_numpy(folds_labels).cuda(),
+                       torch.from_numpy(folds_mask).cuda(),
+                       torch.ones(2, dtype=torch.bool, device="cuda"), hp)
+    loss_err = float(np.abs(folds["losses"] - per.cpu().numpy()).max())
+    params_err = max(flat_max_diff(folds["params"][f], checks._tree_numpy(
+        fold_parallel.member(new, f))) for f in range(2))
+    log(f"[mesh] (b) two-fold fold-parallel step, rows over two ranks, "
+        f"small f32: losses diff {loss_err:.3g}, parameters {params_err:.3g}"
+        f" vs one device (tolerance {MESH_F32_TOL}); replicas differ by "
+        f"{folds['replica_diff']:.3g}")
+    if not (loss_err <= MESH_F32_TOL and params_err <= MESH_F32_TOL
+            and folds["replica_diff"] == 0.0):
+        raise AssertionError("(b) the fold-parallel step disagrees")
+
+
+def _mesh_fold_loss(logits, y, m, hp):
+    """checks.stacked_step's per-fold loss."""
+    from zenker_audio_detection_tpu_torch.train import losses
+
+    return losses.stage2_focal_loss(logits, y, hp["class_w"], sample_mask=m)
+
+
+def phase_mesh(C, ast_mod, torch, smi: str) -> None:
+    """Phase 11: ranks of a process group on the one card (docstring)."""
+    from zenker_audio_detection_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    try:
+        pmesh.make_mesh(n + 1)
+    except ValueError as e:
+        if str(e) != f"requested {n + 1} devices, only {n} visible":
+            raise
+        log(f"[mesh] make_mesh({n + 1}) on {n} card(s): {e}")
+    else:
+        raise AssertionError(f"make_mesh({n + 1}) built a mesh on {n} cards")
+    audio = seeded_audio(60.0, seed=3)
+    s1, s2 = full_size_specs(C, ast_mod)
+    probe = C.TwoStageEngine(s1, s2, C.CascadeConfig(
+        batch_size=128, dtype=torch.bfloat16, stage2_mode="all",
+        attention_impl="kernel"), device="cuda")
+    gate = calibrate_gate(probe, audio)
+    del probe, s1, s2
+    mesh_one_nccl_rank(C, ast_mod, torch, audio, gate)
+    mesh_two_gloo_ranks(C, ast_mod, torch, audio)
+    log(f"[mesh] phase 11 (ranks of a process group on {smi}): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3046,6 +3342,7 @@ def main() -> int:
     log(f"[parallel] phase 9 (audio I/O, fold- and trial-parallel) "
         f"{time.perf_counter() - t0:.1f} s")
     phase_workflow(A, C, ast_mod, torch)
+    phase_mesh(C, ast_mod, torch, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -248,27 +248,67 @@ def test_run_all_folds_dry_run_and_forwarding(study, tmp_path, monkeypatch,
     assert "--plot" in argv and "--int8" in argv
 
 
-@pytest.mark.parametrize("argv", [
-    ["--num-devices", "2"], ["--num-slices", "2"], ["--data-per-fold", "2"]])
-def test_run_all_folds_sharding_flags_name_a10(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run_all_folds.main(["runs", "--long-audio-root", str(tmp_path)]
-                           + argv)
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--num-devices", "2"], RuntimeError,
+     "No such file or directory: 'data_ast_stage2/test_ids_fold1.txt'"),
+    (["--num-slices", "2"], FileNotFoundError,
+     "data_ast_stage2/test_ids_fold1.txt"),
+    (["--data-per-fold", "2"], SystemExit,
+     "--data-per-fold requires --parallel-folds")])
+def test_run_all_folds_sharding_flags_name_a10(argv, exc, match, tmp_path,
+                                               monkeypatch):
+    """The sharding flags do what the JAX driver's do: --data-per-fold
+    without --parallel-folds is its SystemExit; --num-devices 2 runs the
+    folds on two ranks and --num-slices 2 in this process, and both fail on
+    the missing default id list, as JAX's driver fails (in each rank, as
+    the launcher reports it)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(exc, match=match):
+        run_all_folds.main(["runs", "--long-audio-root", str(tmp_path),
+                            "--device", "cpu"] + argv)
+    with pytest.raises(SystemExit if exc is SystemExit
+                       else FileNotFoundError, match=match):
+        jall.main(["runs", "--long-audio-root", str(tmp_path)] + argv)
 
 
 @pytest.mark.parametrize("argv", [["--num-devices", "2"],
                                   ["--num-slices", "2"]])
 def test_batch_and_infer_sharding_flags_name_a10(study, tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run_batch_2stage.main(batch_args(study, 1, tmp_path, *argv))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run_batch_2stage.main(batch_args(study, 1, tmp_path,
-                                         "--extra", " ".join(argv)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    """The sharding flags of the batch driver and of infer_long_audio do
+    what JAX's do. --num-devices 2: the fold's windows over two ranks give
+    the JAX driver's JSONs (also through --extra); infer_long_audio fails
+    on a missing model dir in each rank. --num-slices 2 alone: JAX's
+    ValueError from make_mesh, and infer_long_audio's missing model dir
+    before it. A mesh that is no DeviceMesh fails as JAX's fails on one
+    that is no Mesh."""
+    dev = ["--device", "cpu", "--attention-impl", "torch"]
+    flags = " ".join(argv)
+    if argv[0] == "--num-devices":
+        want = jbatch.main(batch_args(study, 1, tmp_path / "jax"))
+        ref = load_outputs(tmp_path / "jax")
+        for tag, extra in (("flags", argv), ("extra", ["--extra", flags])):
+            got = run_batch_2stage.main(batch_args(
+                study, 1, tmp_path / tag, *dev, *extra))
+            assert got == want == {"done": 2, "failed": 0, "skipped": 0}
+            json_close(load_outputs(tmp_path / tag), ref)
+        infer_exc, infer_match = RuntimeError, "FileNotFoundError"
+    else:
+        for extra in (argv, ["--extra", flags]):
+            with pytest.raises(ValueError, match="requires num_devices > 1"):
+                run_batch_2stage.main(batch_args(study, 1, tmp_path,
+                                                 *dev, *extra))
+            with pytest.raises(ValueError, match="requires num_devices > 1"):
+                jbatch.main(batch_args(study, 1, tmp_path / "j", *extra))
+        infer_exc, infer_match = FileNotFoundError, "fold1/best"
+    with pytest.raises(infer_exc, match=infer_match):
         infer_long_audio.main(["--file-a", "a.wav", "--file-b", "b.wav",
-                               "--fold", "1", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run_batch_2stage.main(batch_args(study, 1, tmp_path), mesh=object())
+                               "--fold", "1", "--model-root",
+                               str(tmp_path / "none"), *dev, *argv])
+    with pytest.raises(AttributeError):
+        run_batch_2stage.main(batch_args(study, 1, tmp_path / "m", *dev),
+                              mesh=object())
+    with pytest.raises(AttributeError):
+        jbatch.main(batch_args(study, 1, tmp_path / "jm"), mesh=object())
 
 
 def test_threshold_config_matches_jax(tmp_path):

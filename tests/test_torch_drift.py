@@ -189,16 +189,68 @@ def test_corpus_builders_equal_jax(tmp_path):
     assert len(ids.read_text().split()) == drift_bench.N_OVERLAP_PATIENTS
 
 
+def _jax_init_tree():
+    import jax
+
+    from zenker_audio_detection_tpu.models import ast as jast
+
+    cfg = jast.ASTConfig(hidden_size=32, num_hidden_layers=2,
+                         num_attention_heads=4, intermediate_size=64,
+                         num_labels=527)
+    return jast.init_params(jax.random.PRNGKey(3), cfg)
+
+
+def test_frozen_init_is_jax_init_bitwise():
+    """`drift_init.npz` holds JAX's `init_params(PRNGKey(3))` random
+    leaves, regenerated here by the JAX package on the CPU: bitwise, so the
+    file cannot go stale. Every other leaf of JAX's init is zero or one."""
+    tree = _jax_init_tree()
+    with np.load(drift_bench.INIT_FILE) as frozen:
+        names = set(frozen.files)
+        assert len(names) == 8
+        for name in names:
+            node = tree
+            for k in name.split("."):
+                node = node[k]
+            want = np.asarray(node)
+            assert frozen[name].dtype == want.dtype, name
+            np.testing.assert_array_equal(frozen[name], want, err_msg=name)
+
+    def leaves(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + ".")
+            else:
+                yield prefix + k, np.asarray(v)
+
+    for name, v in leaves(tree):
+        if name not in names:
+            assert np.all((v == 0) | (v == 1)), name
+
+
 def test_build_pretrained_is_the_port_init(tmp_path):
     """The port's pretrained checkpoint: the JAX module's geometry (h=32,
-    L=2, 527 labels) from the port's own seeded init."""
-    from zenker_audio_detection_tpu_torch.models import ast as ast_mod
+    L=2, 527 labels) and its weights. The directory the port writes equals
+    the one the JAX module writes, config and every tensor."""
+    from zenker_audio_detection_tpu.models import convert as jconvert
     from zenker_audio_detection_tpu_torch.models import convert
 
-    d = drift_bench.build_pretrained(str(tmp_path))
+    d = drift_bench.build_pretrained(str(tmp_path / "ours"))
+    dj = jdrift.build_pretrained(str(tmp_path / "jax"))
     params, cfg = convert.load_hf_model_dir(d)
     assert (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_labels) == \
         (32, 2, 527)
-    want = ast_mod.init_params(np.random.default_rng(3), cfg)
-    np.testing.assert_array_equal(params["encoder"]["q"]["kernel"].numpy(),
-                                  want["encoder"]["q"]["kernel"].numpy())
+    assert sorted(os.listdir(d)) == sorted(os.listdir(dj))
+    with open(os.path.join(d, "config.json")) as a, \
+            open(os.path.join(dj, "config.json")) as b:
+        assert json.load(a) == json.load(b)
+    ours = jconvert.read_safetensors(os.path.join(d, "model.safetensors"))
+    theirs = jconvert.read_safetensors(os.path.join(dj, "model.safetensors"))
+    assert sorted(ours) == sorted(theirs)
+    for k in theirs:
+        assert ours[k].dtype == theirs[k].dtype, k
+        np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
+    want = convert.params_to_numpy(params)
+    np.testing.assert_array_equal(
+        want["encoder"]["q"]["kernel"],
+        np.asarray(_jax_init_tree()["encoder"]["q"]["kernel"]))

@@ -331,15 +331,23 @@ def test_refusals(tmp_path, kw, match):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--parallel-folds", "--streaming"], "incompatible"),
-    (["--parallel-folds", "--resume"], "incompatible"),
-    (["--parallel-folds", "--grad-accum", "2"], "incompatible"),
-    (["--parallel-folds", "--num-devices", "2"], "ROADMAP A10b"),
-    (["--parallel-folds", "--data-per-fold", "1"], "ROADMAP A10b")])
-def test_cli_refusals(flags, match):
-    with pytest.raises(SystemExit, match=match):
-        cli_s1.main(["--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--parallel-folds", "--streaming"], SystemExit, "incompatible"),
+    (["--parallel-folds", "--resume"], SystemExit, "incompatible"),
+    (["--parallel-folds", "--grad-accum", "2"], SystemExit, "incompatible"),
+    (["--parallel-folds", "--num-devices", "2"], RuntimeError,
+     "5 folds not divisible by 2 fold groups"),
+    (["--parallel-folds", "--data-per-fold", "1"], FileNotFoundError,
+     "missing train/test npy files for fold 1 in data_ast_stage1")])
+def test_cli_refusals(tmp_path, monkeypatch, flags, exc, match):
+    """The JAX trainer's refusals; the flags of several devices now run as
+    JAX's do: the fold axis over two ranks refuses five folds in two
+    groups in each rank (JAX's ValueError, reported by the launcher), and
+    one fold group of one device fails on the missing default data dir."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(exc, match=match):
+        cli_s1.main(["--device", "cpu", "--output-root",
+                     str(tmp_path / "runs"), "--max-length", "128", *flags])
 
 
 def test_cli_parallel_folds_on_the_cpu(tmp_path):

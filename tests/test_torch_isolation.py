@@ -29,6 +29,10 @@ SLICE_11 = tuple(f"zenker_audio_detection_tpu_torch.{m}" for m in (
     "cli.extract_thresholds", "cli.plot_confusion_matrices",
     "cli.validate_real", "cli.drift"))
 
+# the modules of training and serving over several devices
+PARALLEL = tuple(f"zenker_audio_detection_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "parallel.launch", "parallel.checks"))
+
 
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(port.__path__,
@@ -65,7 +69,7 @@ def test_port_imports_no_jax():
             "zenker_audio_detection_tpu_torch.train.trial_parallel",
             "zenker_audio_detection_tpu_torch.tune.sweep",
             "zenker_audio_detection_tpu_torch.cli.sweep",
-            *SLICE_11} <= set(mods)
+            *SLICE_11, *PARALLEL} <= set(mods)
     code = (
         "import importlib, sys\n"
         "assert 'jax' not in sys.modules, 'jax pre-imported at startup'\n"
@@ -235,7 +239,8 @@ def test_parallel_and_sweep_modules_load_no_yaml():
     mods = ["zenker_audio_detection_tpu_torch.tune.sweep",
             "zenker_audio_detection_tpu_torch.cli.sweep",
             "zenker_audio_detection_tpu_torch.train.fold_parallel",
-            "zenker_audio_detection_tpu_torch.train.trial_parallel"]
+            "zenker_audio_detection_tpu_torch.train.trial_parallel",
+            *PARALLEL]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -291,7 +296,7 @@ def test_slice_modules_load_no_optional_packages():
     JAX package."""
     code = (
         "import importlib, sys\n"
-        f"for m in {list(SLICE_11)!r}:\n"
+        f"for m in {list(SLICE_11 + PARALLEL)!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('sklearn', 'transformers',\n"

@@ -8,7 +8,7 @@ and with `parallel_trials`, through `run_sweep` and through
 `python -m zenker_audio_detection_tpu_torch.cli.sweep --parallel-trials`
 on the CPU; the trial-parallel sweep records the same sampled parameters
 and objective values as the sequential one (1e-4). Also the CLI's
-refusals (ROADMAP A10b) and its need of CUDA without --device."""
+refusals (the JAX agent's) and its need of CUDA without --device."""
 
 import dataclasses
 import json
@@ -231,16 +231,23 @@ def test_cli_parallel_trials_on_the_cpu(tree, tmp_path):
     assert len((out / "sweep_results.jsonl").read_text().splitlines()) == 2
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--num-devices", "2"], "ROADMAP A10b"),
-    (["--parallel-trials", "--data-per-trial", "2"], "ROADMAP A10b"),
-    (["--data-per-trial", "1"], "ROADMAP A10b"),
-    (["--parallel-trials", "--streaming"], "incompatible"),
-    (["--parallel-trials", "--grad-accum", "2"], "incompatible")])
-def test_cli_refusals(flags, match):
-    with pytest.raises(SystemExit, match=match):
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--num-devices", "2"], RuntimeError, "data_ast_stage1"),
+    (["--parallel-trials", "--data-per-trial", "2"], SystemExit,
+     "--data-per-trial requires an explicit --num-devices"),
+    (["--data-per-trial", "1"], SystemExit,
+     "--data-per-trial requires --parallel-trials"),
+    (["--parallel-trials", "--streaming"], SystemExit, "incompatible"),
+    (["--parallel-trials", "--grad-accum", "2"], SystemExit, "incompatible")])
+def test_cli_refusals(tmp_path, monkeypatch, flags, exc, match):
+    """The JAX agent's refusals with its words; --num-devices 2 now runs
+    the agent on two ranks, whose first trial fails in each on the missing
+    default data dir (reported by the launcher)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(exc, match=match):
         cli.main([str(SWEEPS[0]), "--stage", "stage1", "--device", "cpu",
-                  *flags])
+                  "--output-dir", str(tmp_path / "sw"), "--max-length",
+                  "128", *flags])
 
 
 def test_cli_without_device_needs_cuda(tmp_path, monkeypatch):

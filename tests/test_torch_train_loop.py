@@ -17,8 +17,8 @@ Also, within the port: the artifact contract and the HF reload
 (tests/test_train_loop.py:94-133), the dry run, the run-dir backup,
 streaming equal to eager bit for bit, the tracking channels, featurization
 against the JAX package (1e-5; 1e-3 in bins near the log floor, as
-tests/test_golden.py), the refusal of what is not ported (ROADMAP A10b) and
-of a missing CUDA, and the CLIs."""
+tests/test_golden.py), the fields and flags of several devices as the JAX
+trainer takes them, the refusal of a missing CUDA, and the CLIs."""
 
 import json
 from pathlib import Path
@@ -366,10 +366,13 @@ def test_per_fold_tracking_runs(tmp_path):
                                 {"fold_parallel": True, "data_per_fold": 2},
                                 {"data_per_fold": 2}])
 def test_config_refuses_what_is_not_ported(kw):
-    """Training over several devices is ROADMAP A10b; fold-parallel
-    training on one device is ported (tests/test_torch_fold_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        L.TrainFoldConfig(**kw)
+    """The config takes the fields of several devices as the JAX package's
+    does: it stores them and refuses nothing (the trainers validate them,
+    tests/test_torch_multidevice.py)."""
+    cfg, jcfg = L.TrainFoldConfig(**kw), JL.TrainFoldConfig(**kw)
+    for name in ("num_devices", "num_slices", "fold_parallel",
+                 "data_per_fold"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
     L.TrainFoldConfig(num_devices=1, num_slices=1)  # one device is fine
     L.TrainFoldConfig(fold_parallel=True)
 
@@ -439,14 +442,31 @@ def test_compute_stats_cli_on_the_cpu(tmp_path):
     assert per_fold[0]["fold"] == 1 and per_fold[0]["count"] > 0
 
 
-@pytest.mark.parametrize("flags", [["--num-devices", "2"],
-                                   ["--num-slices", "2"],
-                                   ["--parallel-folds", "--data-per-fold",
-                                    "2"],
-                                   ["--data-per-fold", "2"]])
-def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="ROADMAP A10b"):
-        cli_s1.main(["--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--num-devices", "2"], RuntimeError,
+     "missing train/test npy files for fold 1 in data_ast_stage1"),
+    (["--num-slices", "2"], SystemExit,
+     "--num-devices must be a multiple of --num-slices"),
+    (["--parallel-folds", "--data-per-fold", "2"], SystemExit,
+     "--data-per-fold requires an explicit --num-devices"),
+    (["--data-per-fold", "2"], SystemExit,
+     "--data-per-fold requires --parallel-folds")])
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, exc,
+                                        match):
+    """What the JAX trainer does with the same flags: its validation's
+    SystemExit, or, for --num-devices 2, the training itself, which here
+    runs on two ranks and fails in each on the missing default data dir
+    (JAX's FileNotFoundError, reported by the launcher)."""
+    from zenker_audio_detection_tpu.cli import train_stage1 as jcli
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["--output-root", str(tmp_path / "runs"), "--max-length", "128",
+            *flags]
+    with pytest.raises(exc, match=match):
+        cli_s1.main(["--device", "cpu", *argv])
+    if exc is SystemExit:
+        with pytest.raises(SystemExit, match=match):
+            jcli.main(argv)
 
 
 @pytest.mark.parametrize("argv", [

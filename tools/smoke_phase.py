@@ -2,7 +2,7 @@
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 tools/smoke_phase.py [--phases train_alone train loop serving
-                                   audio parallel workflow]
+                                   audio parallel workflow mesh]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
@@ -16,7 +16,9 @@ windows/s, emit latency and mha_packed at the streaming buckets), `audio`
 (phase 9's fold- and trial-parallel training, which sets its ms per step
 beside the `loop` phase's when that ran first, else beside nan) and
 `workflow` (phase 10: the data preparation, evaluation and analysis CLIs
-as subprocesses, and the adapted stages served).
+as subprocesses, and the adapted stages served) and `mesh` (phase 11:
+ranks of a process group on the one card, one NCCL rank and two gloo
+ranks, against one device).
 After each phase it prints the caching allocator's counters (device
 allocations and frees, allocation retries, reserved and allocated GB), so
 two checkouts' phases can be compared alone and after each other in one
@@ -33,7 +35,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
 PHASES = ("train_alone", "train", "loop", "serving", "audio", "parallel",
-          "workflow")
+          "workflow", "mesh")
 
 
 def main() -> int:
@@ -72,6 +74,8 @@ def main() -> int:
             chip_smoke.phase_parallel(A, ast_mod, torch, smi, loop_ms)
         elif phase == "workflow":
             chip_smoke.phase_workflow(A, C, ast_mod, torch)
+        elif phase == "mesh":
+            chip_smoke.phase_mesh(C, ast_mod, torch, smi)
         else:
             print(chip_smoke.phase_serving(A, C, ast_mod, torch, smi),
                   flush=True)

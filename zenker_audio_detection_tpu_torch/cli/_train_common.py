@@ -3,14 +3,16 @@ src/train_ast_stage1_cross_validation.py:651-758 and the stage-2 twin).
 
 The port's copy of the JAX package's `cli/_train_common.py`, with
 `--device`. `--parallel-folds` trains the target folds at once in one
-vmapped step on that device (train/fold_parallel.py). The flags of
-parallelism over several devices (`--num-devices`, `--num-slices` above 1,
-`--data-per-fold`) are parsed and refused: that training is not ported yet
-(ROADMAP A10b)."""
+vmapped step (train/fold_parallel.py). `--num-devices N` > 1 runs the
+trainer on N ranks of a process group (parallel/launch.py starts them,
+one per card, or joins torchrun's group): data-parallel over a 1-D mesh,
+over a ("dcn", "data") mesh with `--num-slices`, or the fold axis over the
+ranks with `--parallel-folds` (and `--data-per-fold` ranks per fold)."""
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def add_common_train_args(ap: argparse.ArgumentParser, stage: str) -> None:
@@ -54,26 +56,34 @@ def add_common_train_args(ap: argparse.ArgumentParser, stage: str) -> None:
                     help="device the whole loop runs on (cuda, cuda:N or "
                          "cpu); cuda raises when CUDA is missing")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="data-parallel devices; not ported yet (ROADMAP "
-                         "A10b): above 1 it is refused")
+                    help="data-parallel devices: one rank each, params "
+                         "replicated, batch rows sharded over a 1-D mesh "
+                         "(default: single device)")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="multi-slice data parallelism; not ported yet "
-                         "(ROADMAP A10b): above 1 it is refused")
+                    help="split --num-devices into this many slices: a "
+                         "hierarchical (dcn, data) mesh, each slice's ranks "
+                         "contiguous (default: one slice)")
     ap.add_argument("--parallel-folds", action="store_true",
                     help="train all target folds at once in ONE vmapped "
-                         "step on --device (train/fold_parallel.py): each "
-                         "fold keeps its own weights, optimizer state, LR "
-                         "schedule and early stopping, with the sequential "
-                         "trainer's numerics. Incompatible with "
-                         "--streaming, --resume and --grad-accum > 1")
+                         "step (train/fold_parallel.py), the fold axis "
+                         "split over --num-devices: each fold keeps its own "
+                         "weights, optimizer state, LR schedule and early "
+                         "stopping, with the sequential trainer's numerics. "
+                         "Incompatible with --streaming, --resume and "
+                         "--grad-accum > 1")
     ap.add_argument("--data-per-fold", type=int, default=None,
-                    help="fold x data mesh of --parallel-folds; not ported "
-                         "yet (ROADMAP A10b): refused")
+                    help="with --parallel-folds: give each concurrent fold "
+                         "its own group of this many devices and shard the "
+                         "fold's batch rows across the group (2-D fold x "
+                         "data mesh; each fold's gradient is summed over its "
+                         "group only). --num-devices must be group-size * "
+                         "group-count")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="beyond-parity batch scaling: accumulate this many "
                          "micro-batches of --batch-size per optimizer "
                          "update (effective batch = batch-size * "
-                         "grad-accum; LR warmup/decay count optimizer "
+                         "grad-accum; --num-devices shards each batch, it "
+                         "does not grow it. LR warmup/decay count optimizer "
                          "steps). Default 1 = the reference's one update "
                          "per batch")
     ap.add_argument("--scale-lr", action="store_true",
@@ -117,7 +127,8 @@ def effective_lr(args) -> float:
     reference's 16 (src/train_ast_stage1_cross_validation.py:484) — the
     standard large-batch recipe (Goyal et al.); warmup_ratio already
     provides the ramp and the schedule counts optimizer steps. The
-    effective batch is batch_size * grad_accum."""
+    effective batch is batch_size * grad_accum: --batch-size is the global
+    batch, which --num-devices shards without changing the update."""
     if not getattr(args, "scale_lr", False):
         return args.learning_rate
     eff = args.batch_size * args.grad_accum
@@ -134,14 +145,14 @@ def validate_train_args(args) -> list[int]:
         raise SystemExit("--label-smoothing must be in [0, 1)")
     if args.focal_gamma < 0:
         raise SystemExit("--focal-gamma must be >= 0")
-    for flag, value in (("--num-devices", args.num_devices),
-                        ("--num-slices", args.num_slices)):
-        if value is not None and value < 1:
-            raise SystemExit(f"{flag} must be >= 1")
-        if (value or 1) > 1:
-            raise SystemExit(_not_ported(flag))
-    if args.data_per_fold is not None:
-        raise SystemExit(_not_ported("--data-per-fold"))
+    if args.num_devices is not None and args.num_devices < 1:
+        raise SystemExit("--num-devices must be >= 1")
+    if args.num_slices is not None:
+        if args.num_slices < 1:
+            raise SystemExit("--num-slices must be >= 1")
+        if args.num_slices > 1 and (args.num_devices or 1) % args.num_slices:
+            raise SystemExit("--num-devices must be a multiple of "
+                             "--num-slices")
     if args.parallel_folds and (args.streaming or args.resume):
         raise SystemExit("--parallel-folds is incompatible with "
                          "--streaming/--resume (eager featurization only; "
@@ -155,12 +166,36 @@ def validate_train_args(args) -> list[int]:
             "(the training step is an AdamW update)")
     if args.grad_accum < 1:
         raise SystemExit("--grad-accum must be >= 1")
+    if args.data_per_fold is not None:
+        if not args.parallel_folds:
+            raise SystemExit("--data-per-fold requires --parallel-folds")
+        if args.data_per_fold < 1:
+            raise SystemExit("--data-per-fold must be >= 1")
+        if args.data_per_fold > 1 and not args.num_devices:
+            raise SystemExit("--data-per-fold requires an explicit "
+                             "--num-devices (= group-size * group-count)")
+        if (args.num_devices or 1) % args.data_per_fold:
+            raise SystemExit("--num-devices must be a multiple of "
+                             "--data-per-fold")
     return [args.fold] if args.fold else list(range(1, args.num_folds + 1))
 
 
-def _not_ported(flag: str) -> str:
-    return (f"{flag}: training over several devices is not ported yet "
-            f"(ROADMAP A10b); the port trains on one device")
+def argv_list(argv) -> list[str]:
+    """The arguments as a list (the command line's when None), to hand to
+    the ranks a CLI starts."""
+    return list(sys.argv[1:] if argv is None else argv)
+
+
+def spawn_ranks(main, argv: list[str], num_devices, device):
+    """When `num_devices` > 1 and no process group exists: run `main(argv)`
+    on that many ranks (parallel/launch.py) and return (True, rank 0's
+    result); else (False, None), the caller runs in place (under
+    torchrun the group is joined here)."""
+    from ..parallel import launch
+
+    if not launch.should_spawn(num_devices, device):
+        return False, None
+    return True, launch.spawn(main, (argv,), num_devices, device)
 
 
 def train_config(args, stage: str, **stage_kw):
@@ -193,6 +228,9 @@ def train_config(args, stage: str, **stage_kw):
         device=args.device,
         max_length=args.max_length,
         streaming=args.streaming,
+        num_devices=args.num_devices,
+        num_slices=args.num_slices,
         fold_parallel=args.parallel_folds,
+        data_per_fold=args.data_per_fold,
         **stage_kw,
     )

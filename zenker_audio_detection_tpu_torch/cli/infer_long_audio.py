@@ -5,9 +5,11 @@ output schema (outputs/<pid>_2stage.json) and the same gating semantics,
 served by the PyTorch engine. Differences: `--attention-impl` takes
 `kernel` (the CUDA kernel, default) or `torch` (its plain version),
 `--device` (default `cuda`) says where the engine runs, and `--trace-dir`
-writes a `torch.profiler` Chrome trace. `--num-devices` and `--num-slices`
-(sharding over several devices) are not ported yet: they raise
-(ROADMAP A10b).
+writes a `torch.profiler` Chrome trace. `--num-devices N` > 1 runs the
+CLI on N ranks of a process group (parallel/launch.py starts them, one
+per card, or joins torchrun's group): the models are replicated and each
+window chunk is sharded over a 1-D mesh, or a ("dcn", "data") one with
+`--num-slices`; the first rank writes the JSON.
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.infer_long_audio --help
 """
@@ -24,6 +26,7 @@ from ..audio import io as aio
 from ..infer import cascade as C
 from ..infer import discovery
 from ..models import convert
+from ..parallel import mesh as pmesh
 from ..train import loop as train_loop
 from ..utils import fsio
 
@@ -71,9 +74,13 @@ def build_arg_parser():
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="shard each window chunk over this many devices, "
+                         "one rank each (models replicated); default single "
+                         "device")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="split --num-devices into this many slices "
+                         "(hierarchical dcn x data mesh); default one "
+                         "slice")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (per-channel weights, per-token "
                          "activations); probabilities drift O(1e-2): "
@@ -115,18 +122,7 @@ def load_stage_specs(args) -> tuple[C.StageSpec, C.StageSpec]:
             load_stage_spec(root2, ("Healthy", "Zenker")))
 
 
-def refuse_sharding(args) -> None:
-    """--num-devices / --num-slices shard the window chunks over several
-    devices in the JAX package; the port has no such engine yet."""
-    for flag in ("num_devices", "num_slices"):
-        if getattr(args, flag, None) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: sharding inference over "
-                "several devices is not ported yet (ROADMAP A10b)")
-
-
 def build_engine(args) -> tuple[C.TwoStageEngine, str, str]:
-    refuse_sharding(args)
     # resolve the device before loading ~700 MB of weights for nothing
     device = C.resolve_device(args.device)
     spec1, spec2 = load_stage_specs(args)
@@ -145,7 +141,14 @@ def build_engine(args) -> tuple[C.TwoStageEngine, str, str]:
         attention_impl=args.attention_impl,
         int8=args.int8,
     )
-    return (C.TwoStageEngine(spec1, spec2, config, device=device),
+    # a prebuilt mesh (fold-group serving, run_all_folds --data-per-fold)
+    # takes precedence over constructing one from --num-devices
+    mesh = getattr(args, "mesh", None)
+    if mesh is None:
+        mesh = pmesh.make_mesh(getattr(args, "num_devices", None),
+                               getattr(args, "num_slices", None),
+                               device=device)
+    return (C.TwoStageEngine(spec1, spec2, config, device=device, mesh=mesh),
             args.stage1_model_root, args.stage2_model_root)
 
 
@@ -195,6 +198,9 @@ def run_patient(engine: C.TwoStageEngine, files, args,
     output = C.build_patient_output(engine.config, files, per_file,
                                     stage1_root, stage2_root)
     aggregate = output["aggregate"]
+    if engine.mesh is not None:
+        if not pmesh.is_main(engine.mesh):  # the first rank writes
+            return output
 
     if not args.output_json and args.patient_id:
         os.makedirs("outputs", exist_ok=True)
@@ -221,7 +227,14 @@ def run_patient(engine: C.TwoStageEngine, files, args,
 
 
 def main(argv=None):
+    from . import _train_common
+
+    argv = _train_common.argv_list(argv)
     args = build_arg_parser().parse_args(argv)
+    spawned, result = _train_common.spawn_ranks(main, argv, args.num_devices,
+                                                args.device)
+    if spawned:
+        return result
     files = resolve_files(args)
     print(f"Using files:\n  A: {files[0]}\n  B: {files[1]}")
     engine, s1_root, s2_root = build_engine(args)

@@ -8,9 +8,15 @@ every fold CONCURRENTLY, one thread per fold, fold K's resident engine on
 `cuda:((K-1) mod torch.cuda.device_count())` (with `--device cpu`, every
 fold on the CPU): fold batches are independent (distinct models, disjoint
 patients), so N cards serve the whole study at about one fold's wall
-clock, and the shared output dir never collides. `--data-per-fold`,
-`--num-devices` and `--num-slices` (a fold's windows sharded over several
-devices) are not ported yet: they raise (ROADMAP A10b).
+clock, and the shared output dir never collides.
+
+Over several devices (parallel/launch.py starts one rank per device, or
+torchrun's group is joined): `--num-devices N` (`--num-slices`) shards
+every fold's window chunks over N ranks, fold after fold;
+`--parallel-folds --data-per-fold D` gives each fold a group of D ranks
+sharing its window chunks, fold K on group (K-1) mod the group count, the
+groups serving at once. The groups are the cards in groups of D (on the
+CPU one group per fold).
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.run_all_folds --help
 """
@@ -20,6 +26,7 @@ import os
 
 from . import run_batch_2stage
 from ..data import config as env_config
+from ..parallel import mesh as pmesh
 
 
 def main(argv=None):
@@ -55,9 +62,9 @@ def main(argv=None):
                          "cpu); with --parallel-folds and cuda, fold K runs "
                          "on cuda:((K-1) mod device count)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="shard window chunks over this many devices")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="split --num-devices into this many slices")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (see infer_long_audio --int8)")
     ap.add_argument("--parallel-folds", action="store_true",
@@ -65,7 +72,10 @@ def main(argv=None):
                          "fold-resident engine per fold (fold K on "
                          "cuda:((K-1) mod device count))")
     ap.add_argument("--data-per-fold", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="with --parallel-folds: give each fold's resident "
+                         "engine its own group of this many devices and "
+                         "shard its window chunks across the group (fold K "
+                         "on device group (K-1) mod the group count)")
     ap.add_argument("--aggregate", action="store_true",
                     help="run the per-patient aggregator over the output "
                          "dir when all folds finish (the reference leaves "
@@ -73,12 +83,34 @@ def main(argv=None):
                          ".py step, SURVEY §3.4)")
     ap.add_argument("--aggregate-threshold", type=float, default=0.5,
                     help="patient ZSR decision threshold for --aggregate")
+    from . import _train_common
+
+    argv = _train_common.argv_list(argv)
     args = ap.parse_args(argv)
-    for flag in ("num_devices", "num_slices", "data_per_fold"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: sharding a fold's windows over "
-                "several devices is not ported yet (ROADMAP A10b)")
+    if args.parallel_folds and (args.num_devices or args.num_slices):
+        raise SystemExit("--parallel-folds pins one fold per device (or "
+                         "device group with --data-per-fold); it is "
+                         "incompatible with --num-devices/--num-slices "
+                         "window sharding")
+    groups = None
+    if args.data_per_fold is not None:
+        if not args.parallel_folds:
+            raise SystemExit("--data-per-fold requires --parallel-folds")
+        if args.data_per_fold < 1:
+            raise SystemExit("--data-per-fold must be >= 1")
+        if run_batch_2stage.DEFAULT_BATCH_SIZE % args.data_per_fold:
+            # fail fast here instead of identical [FAIL] lines after
+            # every fold group has built its engine
+            raise SystemExit(
+                "--data-per-fold must divide the engine batch size "
+                f"({run_batch_2stage.DEFAULT_BATCH_SIZE})")
+        if args.data_per_fold > 1 and not args.dry_run:
+            groups = _fold_groups(args)
+    ranks = (groups * args.data_per_fold if groups
+             else args.num_devices)
+    spawned, _ = _train_common.spawn_ranks(main, argv, ranks, args.device)
+    if spawned:
+        return
 
     long_root = args.long_audio_root or \
         env_config.load_dataset_config()["long_audio_root"]
@@ -122,6 +154,10 @@ def main(argv=None):
         if args.f32:
             sub.append("--f32")
         sub += ["--device", args.device]
+        if args.num_devices is not None:
+            sub += ["--num-devices", str(args.num_devices)]
+        if args.num_slices is not None:
+            sub += ["--num-slices", str(args.num_slices)]
         if args.int8:
             sub.append("--int8")
         return sub
@@ -129,7 +165,12 @@ def main(argv=None):
     folds = list(range(1, args.num_folds + 1))
     patient_failures = 0
     failed_folds: list[int] = []
-    if args.parallel_folds and not args.dry_run:
+    if groups:
+        failed_folds, patient_failures = _serve_fold_groups(
+            args, folds, groups, fold_args)
+        if not pmesh.is_main():  # the first rank aggregates and reports
+            return
+    elif args.parallel_folds and not args.dry_run:
         from concurrent.futures import ThreadPoolExecutor
 
         import torch
@@ -160,6 +201,8 @@ def main(argv=None):
             counts = run_batch_2stage.main(fold_args(fold))
             if counts:
                 patient_failures += counts["failed"]
+        if not pmesh.is_main():  # the first rank aggregates and reports
+            return
 
     if args.aggregate and not args.dry_run:
         from . import aggregate_results
@@ -180,6 +223,48 @@ def main(argv=None):
         # exit nonzero AFTER aggregating completed folds — the sequential
         # path tolerates partial failures the same way
         raise SystemExit(f"folds failed: {failed_folds}")
+
+
+def _fold_groups(args) -> int:
+    """How many groups of --data-per-fold devices serve the folds: the
+    cards in groups of D, or on the CPU one group per fold."""
+    import torch
+
+    from ..infer import cascade as C
+
+    D = args.data_per_fold
+    if C.resolve_device(args.device).type == "cpu":
+        return args.num_folds
+    visible = torch.cuda.device_count()
+    if D > visible:
+        raise SystemExit(f"--data-per-fold {D}: only {visible} devices "
+                         "visible")
+    return visible // D
+
+
+def _serve_fold_groups(args, folds, groups: int, fold_args):
+    """In each rank: serve this rank's group's folds, fold K on group
+    (K-1) mod `groups`, over the group's "data" sub-mesh; returns (failed
+    folds, failed patients) of every group."""
+    D = args.data_per_fold
+    mesh = pmesh.fold_data_mesh(groups * D, D, device=args.device)
+    group = mesh[pmesh.DATA_AXIS]
+    g = pmesh.mesh_rank(mesh) // D
+    failed_folds, patient_failures = [], 0
+    for fold in folds:
+        if (fold - 1) % groups != g:
+            continue
+        print(f"\n===== Fold {fold}/{args.num_folds} on group {g} "
+              f"({D} devices) =====")
+        try:
+            patient_failures += run_batch_2stage.main(
+                fold_args(fold), mesh=group)["failed"]
+        except Exception as exc:  # per-fold isolation, like the
+            failed_folds.append(fold)  # per-patient handling inside
+            print(f"[FAIL] fold {fold}: {exc}")
+    every = pmesh.all_gather_objects((failed_folds, patient_failures))
+    return (sorted(f for fs, _ in every[::D] for f in fs),
+            sum(n for _, n in every[::D]))
 
 
 if __name__ == "__main__":

@@ -5,9 +5,11 @@ per-patient JSON contract. The fold's two models are loaded ONCE into a
 resident engine and every patient is served from it (the reference spawns
 a subprocess per patient and reloads both models each time, :282-284).
 The engine runs on `--device` (default `cuda`; without a card that raises).
-`--num-devices`, `--num-slices` and a prebuilt `mesh` (sharding a fold's
-windows over several devices) are not ported yet: they raise
-`NotImplementedError` (ROADMAP A10b).
+`--num-devices N` > 1 runs the driver on N ranks of a process group
+(parallel/launch.py, or torchrun's) whose engine shards each window chunk
+over them (`--num-slices`: a ("dcn", "data") mesh); a prebuilt `mesh`
+(run_all_folds' fold groups) does the same over that mesh's ranks. The
+first rank writes the JSONs.
 
 Run: python -m zenker_audio_detection_tpu_torch.cli.run_batch_2stage --help
 """
@@ -18,6 +20,7 @@ import os
 import traceback
 
 from . import infer_long_audio
+from ..parallel import mesh as pmesh
 
 
 # default engine chunk size — shared with run_all_folds' upfront
@@ -48,12 +51,9 @@ def resolve_thresholds(config_path: str | None, fold: int):
 
 def main(argv=None, mesh=None, device=None):
     """`device` overrides --device (run_all_folds --parallel-folds pins
-    each fold's engine to its own card so). `mesh`, a device group for one
-    fold's windows in the JAX package, is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for one fold's engine is not ported yet "
-            "(ROADMAP A10b)")
+    each fold's engine to its own card so). `mesh`: optional prebuilt
+    `DeviceMesh` for the fold-resident engine (run_all_folds
+    --data-per-fold's device group); every rank of it calls this."""
     ap = argparse.ArgumentParser(
         description="Run two-stage inference for every test patient of a fold.")
     ap.add_argument("--fold", type=int, required=True)
@@ -88,9 +88,11 @@ def main(argv=None, mesh=None, device=None):
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, cuda:N or cpu)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="shard each window chunk over this many devices, "
+                         "one rank each (models replicated)")
     ap.add_argument("--num-slices", type=int, default=None,
-                    help="not ported yet (ROADMAP A10b): raises")
+                    help="split --num-devices into this many slices "
+                         "(hierarchical dcn x data mesh)")
     ap.add_argument("--int8", action="store_true",
                     help="int8 encoder GEMMs (see infer_long_audio --int8)")
     ap.add_argument("--extra", default=None,
@@ -100,14 +102,19 @@ def main(argv=None, mesh=None, device=None):
                          "subprocess, so the tokens are parsed as extra "
                          "flags of THIS command and override its options, "
                          "e.g. --extra '--stage2-argmax --batch-size 64')")
+    from . import _train_common
+
+    argv = _train_common.argv_list(argv)
     args = ap.parse_args(argv)
     if args.extra:
         import shlex
-        import sys
 
-        base = list(argv) if argv is not None else sys.argv[1:]
-        args = ap.parse_args(base + shlex.split(args.extra))
-    infer_long_audio.refuse_sharding(args)
+        args = ap.parse_args(argv + shlex.split(args.extra))
+    if mesh is None:
+        spawned, result = _train_common.spawn_ranks(
+            main, argv, args.num_devices, device or args.device)
+        if spawned:
+            return result
 
     ids_path = os.path.join(args.ids_root, f"test_ids_fold{args.fold}.txt")
     patients = read_ids(ids_path)
@@ -141,6 +148,8 @@ def main(argv=None, mesh=None, device=None):
         # (run_batch_simple_2stage.py SCRIPT_NAME), whose plot artifacts
         # are named {pid}_2stage_plot_cached.*
         plot_cached_name=True,
+        num_devices=args.num_devices, num_slices=args.num_slices,
+        mesh=mesh,
         stage2_mode="gated", attention_impl=args.attention_impl,
         device=device or args.device, int8=args.int8, trace_dir=None,
         show_first_n=0, pattern=args.pattern,
@@ -175,6 +184,10 @@ def main(argv=None, mesh=None, device=None):
             print(f"[DRY-RUN] would infer patient {pid} -> {expected}")
         else:
             todo.append((pid, expected))
+
+    # every rank decides what to skip before the first writes a JSON
+    if mesh is not None or (args.num_devices or 1) > 1:
+        pmesh.barrier(mesh)
 
     def discover(pid):
         return discovery.discover_two_files(args.long_audio_root, pid,

@@ -4,9 +4,11 @@ wandb_sweeps/*.yaml; the same YAML format, see tune/sweep.py).
 The port's copy of the JAX package's `cli/sweep.py`, with `--device`
 (default cuda; the CPU only when named). `--parallel-trials` trains every
 trial at once in one vmapped step on that device
-(train/trial_parallel.py). Parallelism over several devices
-(`--num-devices` above 1, `--data-per-trial`) is not ported yet: it is
-refused (ROADMAP A10b). PyYAML is needed to read the sweep YAML.
+(train/trial_parallel.py). `--num-devices N` > 1 runs the agent on N
+ranks of a process group (parallel/launch.py, or torchrun's): each
+sequential trial data-parallel over them, or with `--parallel-trials` the
+trial axis split over them (`--data-per-trial` ranks per trial). PyYAML
+is needed to read the sweep YAML.
 
     python -m zenker_audio_detection_tpu_torch.cli.sweep \\
         sweeps/sweep_stage1_comprehensive.yaml --stage stage1 \\
@@ -17,11 +19,7 @@ import argparse
 
 from ..train import loop as train_loop
 from ..tune import sweep as sweep_mod
-
-
-def _not_ported(flag: str) -> str:
-    return (f"{flag}: sweeps over several devices are not ported yet "
-            f"(ROADMAP A10b); the port trains on one device")
+from . import _train_common
 
 
 def main(argv=None):
@@ -52,25 +50,27 @@ def main(argv=None):
                          "batch scaling; incompatible with "
                          "--parallel-trials)")
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="data-parallel devices per trial; not ported yet "
-                         "(ROADMAP A10b): above 1 it is refused")
+                    help="data-parallel devices per trial (or the trial "
+                         "mesh size with --parallel-trials)")
     ap.add_argument("--data-per-trial", type=int, default=None,
-                    help="each concurrent trial's batch over a group of "
-                         "devices; not ported yet (ROADMAP A10b): refused")
+                    help="with --parallel-trials: give each concurrent "
+                         "trial its own group of this many devices and "
+                         "shard the shared batch across the group (2-D "
+                         "trial x data mesh; each group's gradients are "
+                         "summed over the group only). --num-devices must "
+                         "be group-size * group-count")
     ap.add_argument("--parallel-trials", action="store_true",
-                    help="train ALL trials at once in one vmapped step "
+                    help="train ALL trials at once in one vmapped step, "
+                         "the trial axis split over --num-devices "
                          "(train/trial_parallel.py): the trials share one "
                          "data batch per step, only params/opt-state/"
                          "hyperparameters are per-trial; Hyperband cuts "
                          "use the simultaneous-median rule. Incompatible "
                          "with --streaming")
+    argv = _train_common.argv_list(argv)
     args = ap.parse_args(argv)
     if args.num_devices is not None and args.num_devices < 1:
         raise SystemExit("--num-devices must be >= 1")
-    if (args.num_devices or 1) > 1:
-        raise SystemExit(_not_ported("--num-devices"))
-    if args.data_per_trial is not None:
-        raise SystemExit(_not_ported("--data-per-trial"))
     if args.parallel_trials and args.streaming:
         raise SystemExit("--parallel-trials is incompatible with "
                          "--streaming (eager featurization only)")
@@ -79,7 +79,22 @@ def main(argv=None):
     if args.grad_accum > 1 and args.parallel_trials:
         raise SystemExit("--grad-accum > 1 is incompatible with "
                          "--parallel-trials (trials share one data batch "
-                         "per step)")
+                         "per step; scale data via --data-per-trial "
+                         "device groups instead)")
+    if args.data_per_trial is not None:
+        if not args.parallel_trials:
+            raise SystemExit("--data-per-trial requires --parallel-trials")
+        if args.data_per_trial < 1:
+            raise SystemExit("--data-per-trial must be >= 1")
+        if args.data_per_trial > 1 and not args.num_devices:
+            raise SystemExit("--data-per-trial requires an explicit "
+                             "--num-devices (= group-size * group-count)")
+        if (args.num_devices or 1) % args.data_per_trial:
+            raise SystemExit("--num-devices must be a multiple of "
+                             "--data-per-trial")
+    if _train_common.spawn_ranks(main, argv, args.num_devices,
+                                 args.device)[0]:
+        return
 
     import torch
 
@@ -106,6 +121,7 @@ def main(argv=None):
         max_length=args.max_length,
         streaming=args.streaming,
         num_devices=args.num_devices,
+        data_per_fold=args.data_per_trial,
     )
     out = sweep_mod.run_sweep(args.sweep_config, base, count=args.count,
                               seed=args.seed, output_dir=args.output_dir,

@@ -14,8 +14,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Fine-tune AST for Stage 1 (Idle vs Swallow) per fold.")
     _train_common.add_common_train_args(ap, "stage1")
+    argv = _train_common.argv_list(argv)
     args = ap.parse_args(argv)
     folds = _train_common.validate_train_args(args)
+    if _train_common.spawn_ranks(main, argv, args.num_devices,
+                                 args.device)[0]:
+        return
 
     from ..train import loop as train_loop
 

@@ -20,8 +20,12 @@ def main(argv=None):
     ap.add_argument("--no-focal-loss", action="store_true",
                     help="weighted CE instead of focal loss")
     ap.add_argument("--no-class-weights", action="store_true")
+    argv = _train_common.argv_list(argv)
     args = ap.parse_args(argv)
     folds = _train_common.validate_train_args(args)
+    if _train_common.spawn_ranks(main, argv, args.num_devices,
+                                 args.device)[0]:
+        return
 
     from ..train import loop as train_loop
 

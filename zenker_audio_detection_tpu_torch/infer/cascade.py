@@ -30,6 +30,7 @@ import torch.nn.functional as nnf
 
 from ..models import ast as ast_mod
 from ..ops import fbank as F
+from ..parallel import mesh as pmesh
 
 SAMPLING_RATE = 16000
 
@@ -107,8 +108,13 @@ class TwoStageEngine:
     src/run_batch_simple_2stage.py:282-284)."""
 
     def __init__(self, stage1: StageSpec, stage2: StageSpec,
-                 config: CascadeConfig = CascadeConfig(), device=None):
-        """`device`: where the models and the work live; None means CUDA."""
+                 config: CascadeConfig = CascadeConfig(), device=None,
+                 mesh=None):
+        """`device`: where the models and the work live; None means CUDA.
+        `mesh`: optional `DeviceMesh` (parallel/mesh.py) over the ranks of
+        a process group: the models are replicated, each chunk's windows
+        sharded across its ranks and the probabilities gathered back in
+        window order (every rank returns them). Single-device when None."""
         if config.stage2_mode not in ("gated", "all"):
             raise ValueError(
                 f"stage2_mode must be 'gated' or 'all', got "
@@ -127,6 +133,13 @@ class TwoStageEngine:
         self.stage1 = stage1
         self.stage2 = stage2
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            n_dev = pmesh.mesh_size(mesh)
+            if config.batch_size % n_dev:
+                raise ValueError(
+                    f"batch_size {config.batch_size} must divide across "
+                    f"{n_dev} devices")
         win = int(config.window_sec * SAMPLING_RATE)
         hop = int(config.hop_sec * SAMPLING_RATE)
         self._win = win
@@ -147,6 +160,9 @@ class TwoStageEngine:
                                             self.device)
         self._params2 = ast_mod.cast_params(stage2.params, config.dtype,
                                             self.device)
+        if mesh is not None:
+            pmesh.replicate(self._params1, mesh)
+            pmesh.replicate(self._params2, mesh)
         # (mean, 2 * std) of each stage as f32 device scalars, made once: a
         # host-to-device copy per chunk would wait for the queued chunks
         self._norm = {
@@ -287,7 +303,7 @@ class TwoStageEngine:
         buf[:m] = audio[:m]
         frames = F.logmel_frames(torch.from_numpy(buf).to(self.device),
                                  F.num_frames(padded_len))
-        if use_cache:
+        if use_cache and (self.mesh is None or pmesh.is_main(self.mesh)):
             fcache.save_frames(path, frames[:n_true_frames].cpu().numpy(),
                                cfg.window_sec, cfg.hop_sec, SAMPLING_RATE,
                                cfg.cache_dir)
@@ -301,14 +317,21 @@ class TwoStageEngine:
         of all chunks go to the device in one copy before the first, so the
         host never waits on the device between chunks. Tail chunks are
         padded up to pow2 buckets with start 0 (always in range; rows
-        discarded), as in the JAX engine."""
+        discarded), as in the JAX engine. With a mesh each rank runs its
+        contiguous share of every chunk (the buckets' floor is the mesh
+        size, so each divides), and one gather at the end puts the rows
+        back in window order."""
         C = self.config.batch_size
         W = len(starts)
+        floor = 8
+        if self.mesh is not None:
+            floor = pmesh.mesh_size(self.mesh)
         sizes = []  # (valid rows, bucket) of each chunk
         i = 0
         while i < W:
             n = min(C, W - i)
-            sizes.append((n, C if n == C else min(C, _next_pow2(n, floor=8))))
+            sizes.append((n, C if n == C else min(C, _next_pow2(n,
+                                                                floor=floor))))
             i += n
         padded = np.zeros(sum(b for _, b in sizes), np.int64)
         i = j = 0
@@ -320,12 +343,32 @@ class TwoStageEngine:
         pending = []
         j = 0
         for n, bucket in sizes:
-            probs = self._stage_probs(stage, kind, device_buf,
-                                      padded[j: j + bucket])
+            chunk = padded[j: j + bucket]
+            if self.mesh is not None:
+                chunk = pmesh.local_rows(chunk, self.mesh)
+            probs = self._stage_probs(stage, kind, device_buf, chunk)
             pending.append((n, probs))
             j += bucket
+        if self.mesh is not None:
+            pending = self._gather_chunks(pending)
         return np.concatenate(
             [p[:n].cpu().numpy().astype(np.float64) for n, p in pending])
+
+    def _gather_chunks(self, pending):
+        """Every rank's share of every chunk -> the chunks' whole rows, in
+        one collective: the ranks' concatenated shares are gathered, then
+        each chunk's shares are laid rank after rank."""
+        n_dev = pmesh.mesh_size(self.mesh)
+        local = torch.cat([p for _, p in pending])
+        glob = pmesh.gather_rows(local, self.mesh).view(
+            n_dev, local.shape[0], -1)
+        out = []
+        off = 0
+        for n, p in pending:
+            b = p.shape[0]
+            out.append((n, glob[:, off: off + b].reshape(n_dev * b, -1)))
+            off += b
+        return out
 
     # ---------------- reference-exact gating & summaries ----------------
 

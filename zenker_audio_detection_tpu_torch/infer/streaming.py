@@ -71,6 +71,10 @@ class StreamingCascade:
 
     def __init__(self, engine: C.TwoStageEngine, chunk_windows: int = 32,
                  capacity_frames: int = 4096, retain_results: bool = True):
+        if engine.mesh is not None:
+            raise NotImplementedError(
+                "streaming is single-device (latency-oriented); use the "
+                "batch engine for multi-device serving")
         if engine._hop <= 0 or engine._win <= 0:
             raise ValueError("window_sec and hop_sec must be > 0")
         if engine._hop % F.HOP_LENGTH != 0:

@@ -40,9 +40,18 @@ trainer's (train/loop.py:train_fold):
 
 The steps run the model's "torch" attention, as the sequential loop's do
 (the Hopper kernels' autograd Function has no vmap rule). Not supported
-here (use the sequential path): `streaming`, `grad_accum` > 1, `resume`
-and the `on_epoch_end` hook; several devices (`num_devices`,
-`data_per_fold`) are ROADMAP A10b and raise in `TrainFoldConfig`.
+here (use the sequential path): `streaming`, `grad_accum` > 1, `resume`,
+`num_slices` and the `on_epoch_end` hook.
+
+Over several devices (`num_devices`, parallel/mesh.py) the fold axis is
+split over the ranks, as JAX shards it over its "fold" mesh axis: the
+folds divide into `num_devices / data_per_fold` groups of consecutive
+folds, and each group of ranks runs this trainer's vmapped step on its own
+folds. With `data_per_fold` > 1 the ranks of a group also shard each
+fold's batch rows and sum the gradients over the group's "data" sub-mesh
+only (a 2-D ("fold", "data") mesh); no collective crosses groups but the
+per-epoch check that every fold has stopped and the final gather of the
+metrics. A group's first rank writes its folds' files.
 
 `stacked_forward` and `make_stacked_train_step` also serve the
 trial-parallel sweep (train/trial_parallel.py), whose members share one
@@ -61,6 +70,8 @@ import torch
 from torch.func import vmap
 
 from ..infer.cascade import resolve_device
+from ..parallel import mesh as pmesh
+from ..parallel.mesh import FOLD_AXIS
 from ..models import ast as ast_mod
 from ..utils.precision import full_f32
 from . import loop as L, losses, metrics as metrics_mod, optim, steps
@@ -97,12 +108,12 @@ class _FoldData:
 
 
 def _prepare_fold(fold: int, cfg: L.TrainFoldConfig, model_cfg,
-                  device: torch.device) -> _FoldData:
+                  device: torch.device, mesh=None) -> _FoldData:
     """Per-fold data through the helpers shared with the sequential trainer
     (loop.prepare_fold_dir / load_fold_splits). The model's initialization
     is the same for every fold (same seed, same pretrained dir), so the
     caller makes it once."""
-    fold_dir, mean, std = L.prepare_fold_dir(fold, cfg)
+    fold_dir, mean, std = L.prepare_fold_dir(fold, cfg, mesh)
     train_x, train_y, test_x, test_y, val_x, val_y = L.load_fold_splits(
         fold, cfg)
 
@@ -218,7 +229,7 @@ def stacked_forward(params, feats: torch.Tensor, model_cfg, *, dtype,
 def make_stacked_train_step(model_cfg, loss_fn: Callable, mask_tree, *,
                             dtype, shared_batch: bool = False,
                             weight_decay: float | None = None,
-                            beta2: float | None = None):
+                            beta2: float | None = None, mesh=None):
     """step(params, opt_state, feats, labels, row_mask, active, hp) ->
     (params', opt_state', losses (N,)): one AdamW update of every member.
 
@@ -227,7 +238,12 @@ def make_stacked_train_step(model_cfg, loss_fn: Callable, mask_tree, *,
     is (N,) bool; hp is a dict of (N, ...) tensors: "lr" (the scheduled
     step size), "wd" and "b2" unless weight_decay / beta2 are given here,
     and whatever loss_fn(logits, labels, row_mask, hp) reads, per member.
-    An inactive member's parameters and state come back as they went in."""
+    An inactive member's parameters and state come back as they went in.
+
+    `mesh` (a 1-D "data" mesh): every rank passes the global batch (feats
+    may stay on the host) and runs its contiguous share of the rows; the
+    members' losses are the global batch's and each member's gradient is
+    summed over the mesh (train/steps.py:sharded_value_and_grad)."""
     data_dim = None if shared_batch else 0
     member_loss = vmap(loss_fn, in_dims=(0, data_dim, data_dim, 0))
 
@@ -252,17 +268,54 @@ def make_stacked_train_step(model_cfg, loss_fn: Callable, mask_tree, *,
         # member i's own gradient
         return per.sum(), per
 
+    def forward(p, feats):
+        return stacked_forward(p, feats, model_cfg, dtype=dtype, remat=True,
+                               shared_batch=shared_batch)
+
+    def on_logits(logits, labels, row_mask, hp):
+        per = member_loss(logits, labels, row_mask, hp)
+        return per.sum(), per
+
     def step(params, opt_state, feats, labels, row_mask, active, hp):
-        (_, per), grads = steps.value_and_grad(objective, params, feats,
-                                               labels, row_mask, hp)
+        if mesh is not None:
+            local = pmesh.local_rows(feats, mesh,
+                                     0 if shared_batch else 1).to(
+                labels.device)
+            (_, per), grads = steps.sharded_value_and_grad(
+                forward, on_logits, params, (local,),
+                (labels, row_mask, hp), mesh, dim=1)
+        else:
+            (_, per), grads = steps.value_and_grad(
+                objective, params, feats.to(labels.device), labels,
+                row_mask, hp)
         new_params, new_opt = update(params, opt_state, grads, active, hp)
         return new_params, new_opt, per
 
     return step
 
 
+def stacked_eval_logits(params, chunk: np.ndarray, model_cfg, dtype,
+                        device: torch.device, shared_batch: bool = False,
+                        mesh=None) -> np.ndarray:
+    """stacked_forward's logits (N, B, labels) of one host chunk, without
+    autograd; with `mesh` each rank runs its share of the rows and the
+    logits are gathered."""
+    with torch.no_grad():
+        if mesh is None:
+            feats = torch.from_numpy(chunk).to(device)
+        else:
+            feats = pmesh.shard_batch(chunk, mesh, 0 if shared_batch else 1,
+                                      device)
+        logits = stacked_forward(params, feats, model_cfg, dtype=dtype,
+                                 shared_batch=shared_batch)
+        if mesh is not None:
+            logits = pmesh.gather_rows(logits, mesh, 1)
+    return logits.cpu().numpy()
+
+
 def _stacked_eval(params, folds_data: list[_FoldData], model_cfg, dtype,
-                  batch: int, device: torch.device) -> list[np.ndarray]:
+                  batch: int, device: torch.device,
+                  mesh=None) -> list[np.ndarray]:
     """Per-fold logits over each fold's eval split (val, or test when no
     val exists), evaluated fold-parallel on zero-padded stacks; returns the
     valid prefixes."""
@@ -275,9 +328,8 @@ def _stacked_eval(params, folds_data: list[_FoldData], model_cfg, dtype,
         for f, data in enumerate(sets):
             rows = data[s: s + batch]
             chunk[f, : len(rows)] = rows
-        with torch.no_grad():
-            logits = stacked_forward(params, torch.from_numpy(chunk).to(
-                device), model_cfg, dtype=dtype).cpu().numpy()
+        logits = stacked_eval_logits(params, chunk, model_cfg, dtype, device,
+                                     mesh=mesh)
         for f, data in enumerate(sets):
             k = min(batch, max(0, len(data) - s))
             if k:
@@ -303,18 +355,32 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
     if cfg.resume:
         raise ValueError("fold-parallel training does not support --resume; "
                          "resume individual folds with the sequential path")
+    if cfg.num_slices and cfg.num_slices > 1:
+        raise ValueError("fold-parallel training shards the fold axis over "
+                         "a flat mesh; --num-slices is not supported here")
     if cfg.on_epoch_end is not None:
         raise ValueError("fold-parallel training does not support the "
                          "on_epoch_end hook (sweep trials cut per trial; "
                          "use the sequential path)")
+    data_per_fold = cfg.data_per_fold or 1
+    if data_per_fold > 1 and not (cfg.num_devices and cfg.num_devices > 1):
+        raise ValueError("data_per_fold > 1 requires num_devices > 1")
+    if cfg.num_devices and cfg.num_devices > 1:
+        # validate before run dirs are backed up or data is featurized
+        cfg = _validate_groups(folds, cfg, data_per_fold, "fold")
     device = resolve_device(cfg.device)
     trackers = trackers or {}
     print(f"\n===== {cfg.stage} folds {list(folds)} (fold-parallel) =====")
 
+    all_folds = list(folds)
+    mesh, data_mesh, folds = _group_share(all_folds, cfg, data_per_fold,
+                                          FOLD_AXIS, "folds")
+
     # one initialization for every fold, as each sequential train_fold call
     # would make it
     params0, model_cfg = L.init_model(cfg)
-    folds_data = [_prepare_fold(f, cfg, model_cfg, device) for f in folds]
+    folds_data = [_prepare_fold(f, cfg, model_cfg, device, data_mesh)
+                  for f in folds]
     F = len(folds_data)
     bs = cfg.batch_size
     num_epochs = 1 if cfg.dry_run else cfg.num_epochs
@@ -325,7 +391,8 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
     opt_state = vmap(optim.adamw_init)(params)
     train_step = make_stacked_train_step(
         model_cfg, _make_parallel_loss(cfg), optim.decay_mask(params0),
-        dtype=cfg.dtype, weight_decay=cfg.weight_decay, beta2=cfg.adam_beta2)
+        dtype=cfg.dtype, weight_decay=cfg.weight_decay, beta2=cfg.adam_beta2,
+        mesh=data_mesh)
 
     def per_fold(values, dtype=torch.float32):
         return torch.as_tensor(np.asarray(values), dtype=dtype, device=device)
@@ -367,8 +434,10 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
             lr = cfg.learning_rate * _lr_factor(per_fold(step_idx), total,
                                                 warmup)
             params, opt_state, loss_vals = train_step(
-                params, opt_state, per_fold(feats), per_fold(labels,
-                                                             torch.int64),
+                params, opt_state,
+                per_fold(feats) if data_mesh is None
+                else torch.from_numpy(feats),
+                per_fold(labels, torch.int64),
                 per_fold(mask), per_fold(active, torch.bool),
                 {"lr": lr, "class_w": class_w})
             loss_np = loss_vals.cpu().numpy()
@@ -385,7 +454,7 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
                                 "train_step_loss": float(loss_np[f])})
 
         eval_logits = _stacked_eval(params, folds_data, model_cfg, cfg.dtype,
-                                    cfg.eval_batch_size, device)
+                                    cfg.eval_batch_size, device, data_mesh)
         for f, fd in enumerate(folds_data):
             prog = progs[f]
             if prog.stopped:
@@ -410,14 +479,15 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
                     member(params, f),
                     L.sequential_opt_layout(member(opt_state, f))),
                 rng_state=epoch_rngs[f].bit_generator.state,
-                label=f" fold {fd.fold}:")
-        if all(p.stopped for p in progs):
+                label=f" fold {fd.fold}:", mesh=data_mesh)
+        if _all_stopped(progs, mesh):
             break
 
     # each fold's best export, metrics and CM artifacts through the
     # sequential trainer's helper
     all_metrics = []
-    single_eval = steps.make_eval_step(model_cfg, dtype=cfg.dtype)
+    single_eval = steps.make_eval_step(model_cfg, dtype=cfg.dtype,
+                                       mesh=data_mesh, device=device)
     for f, fd in enumerate(folds_data):
         prog = progs[f]
         if prog.best_params is None:
@@ -428,5 +498,76 @@ def train_folds_parallel(folds: list[int], cfg: L.TrainFoldConfig,
             fd.eval_y, fd.has_val, fd.test_feats, fd.test_y, single_eval,
             device, trackers.get(fd.fold), prog.history,
             class_weights=(fd.class_weights if cfg.use_class_weights
-                           else None)))
-    return all_metrics
+                           else None), mesh=data_mesh))
+    return _gather_groups(all_metrics, mesh, data_per_fold)
+
+
+def _validate_groups(members: list, cfg: L.TrainFoldConfig, per_group: int,
+                     what: str) -> L.TrainFoldConfig:
+    """JAX's checks of a fold (trial) axis over `cfg.num_devices` devices
+    in groups of `per_group`; returns cfg with eval_batch_size rounded up
+    to a group multiple."""
+    n_dev = cfg.num_devices
+    groups = n_dev // per_group
+    if n_dev % per_group:
+        raise ValueError(f"{n_dev} devices not divisible into groups of "
+                         f"{per_group}")
+    if len(members) % groups:
+        raise ValueError(f"{len(members)} {what}s not divisible by {groups} "
+                         f"{what} groups ({n_dev} devices / {per_group} per "
+                         f"{what})")
+    if per_group > 1 and cfg.batch_size % per_group:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"data_per_{what} {per_group}")
+    if per_group > 1 and cfg.eval_batch_size % per_group:
+        # eval_batch_size is not CLI-exposed: round up instead of erroring
+        # (the eval chunk size only affects speed)
+        bumped = -(-cfg.eval_batch_size // per_group) * per_group
+        print(f"[Mesh] eval_batch_size {cfg.eval_batch_size} -> {bumped} "
+              f"(rounded up to a {per_group}-device group multiple)")
+        cfg = dataclasses.replace(cfg, eval_batch_size=bumped)
+    return cfg
+
+
+def _group_share(members: list, cfg: L.TrainFoldConfig, per_group: int,
+                 axis_name: str, what: str):
+    """(mesh, the group's "data" sub-mesh or None, this rank's members):
+    the members split into consecutive equal shares, one per group of
+    `per_group` ranks, as JAX shards the axis over the mesh."""
+    if per_group > 1:
+        mesh = pmesh.fold_data_mesh(cfg.num_devices, per_group, axis_name,
+                                    device=cfg.device)
+    else:
+        mesh = pmesh.make_mesh(cfg.num_devices, axis_name=axis_name,
+                               device=cfg.device)
+    if mesh is None:
+        return None, None, members
+    groups = mesh.mesh.shape[0]
+    share = len(members) // groups
+    g = pmesh.mesh_rank(mesh) // per_group
+    if per_group > 1:
+        print(f"[Mesh] {len(members)} {what} over {pmesh.mesh_size(mesh)} "
+              f"devices: {groups} {axis_name} groups x {per_group} "
+              f"data-parallel devices each")
+    else:
+        print(f"[Mesh] {len(members)} {what} over {pmesh.mesh_size(mesh)} "
+              f"devices (axis '{axis_name}')")
+    return (mesh, mesh[pmesh.DATA_AXIS] if per_group > 1 else None,
+            members[g * share: (g + 1) * share])
+
+
+def _all_stopped(progs, mesh) -> bool:
+    """Whether every member has stopped, on every group of the mesh (each
+    group then leaves its epoch loop at the same epoch)."""
+    mine = all(p.stopped for p in progs)
+    if mesh is None:
+        return mine
+    return all(pmesh.all_gather_objects(mine, mesh))
+
+
+def _gather_groups(results: list, mesh, per_group: int) -> list:
+    """Every group's results, in group order, on every rank."""
+    if mesh is None:
+        return results
+    every = pmesh.all_gather_objects(results, mesh)
+    return [r for group in every[::per_group] for r in group]

@@ -19,10 +19,17 @@ raises when CUDA is asked for and missing. The log-mel runs there in f32
 with TF32 off (`ops/fbank.logmel_frames`); the train and eval steps
 (`train/steps.py`) run the model's "torch" attention, as the JAX trainer's
 steps run its default "xla" attention. `fold_parallel` trains all folds
-at once in one vmapped step on that device (train/fold_parallel.py). Data
-parallelism over several devices (`num_devices`, `num_slices`,
-`data_per_fold`) is not ported yet (ROADMAP A10b): asking for it raises
-`NotImplementedError`.
+at once in one vmapped step on that device (train/fold_parallel.py).
+
+Over several devices (`num_devices`, `num_slices`; parallel/mesh.py) the
+loop runs in every rank of a process group (parallel/launch.py starts
+them): each rank draws the global batch from the same seeds, as the single
+process does, and the step shards its rows (train/steps.py); parameters
+and optimizer state are replicated, evaluation chunks are sharded and
+their logits gathered, so every rank computes the same metrics and takes
+the same early-stopping and best-model branches. The first rank writes
+every file (run dirs, checkpoints, exports), the others wait for it at a
+barrier.
 
 Checkpoints keep the JAX layout (`save_checkpoint`), so a JAX checkpoint
 of the sequential trainer resumes here too.
@@ -49,6 +56,7 @@ from ..infer.cascade import resolve_device
 from ..models import ast as ast_mod
 from ..models import convert
 from ..ops import fbank as F
+from ..parallel import mesh as pmesh
 from ..utils import fsio
 from . import losses, metrics as metrics_mod, optim, steps
 
@@ -60,12 +68,6 @@ STAGE_LABELS = {
     "stage1": ["Idle", "Swallow"],
     "stage2": ["Healthy", "Zenker"],
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A10b: parallelism over several "
-        f"devices); the port trains on one device")
 
 
 @dataclasses.dataclass
@@ -104,9 +106,12 @@ class TrainFoldConfig:
     # optional hook: on_epoch_end(epoch, metrics_dict) -> True to stop early
     # (used by the sweep agent's Hyperband-style early termination)
     on_epoch_end: Any = None
-    # data-parallel mesh size and multi-slice split of the JAX trainer;
-    # above 1 they raise here (ROADMAP A10b)
+    # data-parallel mesh size (parallel/mesh.py): params/opt-state
+    # replicated, batch rows sharded over a 1-D "data" mesh of ranks.
+    # None/1 = single device.
     num_devices: int | None = None
+    # split num_devices into this many slices: a hierarchical ("dcn",
+    # "data") mesh, each slice's ranks contiguous
     num_slices: int | None = None
     # short-sequence mode: fine-tune at this input frame count instead of
     # the checkpoint's (models/ast.py adapt_max_length); None = keep the
@@ -119,23 +124,16 @@ class TrainFoldConfig:
     # per-step train-loss logging cadence into the tracker (the reference's
     # HF Trainer logging_steps=20); 0 disables
     logging_steps: int = 20
-    # train all folds at once in one vmapped step (train/fold_parallel.py);
-    # data_per_fold, each fold's batch over a group of devices, raises here
-    # (ROADMAP A10b)
+    # train all folds at once in one vmapped step (train/fold_parallel.py),
+    # the fold axis split over num_devices; data_per_fold gives each fold a
+    # group of that many devices sharing its batch rows (a 2-D ("fold",
+    # "data") mesh). None/1 = the flat 1-D fold mesh.
     fold_parallel: bool = False
     data_per_fold: int | None = None
     # accumulate this many micro-batches of batch_size before each
     # optimizer update; the LR schedule counts OPTIMIZER steps. 1 = the
     # parity path (batch 16, one update per batch, reference :484).
     grad_accum: int = 1
-
-    def __post_init__(self):
-        if (self.num_devices or 1) > 1:
-            raise _not_ported(f"num_devices={self.num_devices}")
-        if (self.num_slices or 1) > 1:
-            raise _not_ported(f"num_slices={self.num_slices}")
-        if self.data_per_fold is not None:
-            raise _not_ported(f"data_per_fold={self.data_per_fold}")
 
 
 def backup_existing_run_dir(path: str) -> str | None:
@@ -392,14 +390,17 @@ def _make_loss(cfg: TrainFoldConfig, class_weights):
 
 
 def _predict(eval_step, params, feats, batch: int,
-             device: torch.device) -> np.ndarray:
+             device: torch.device, mesh=None) -> np.ndarray:
     """f32 logits of `feats` (host numpy) in chunks of `batch` on `device`;
     the tail chunk runs at its own size (each row's logits do not depend on
-    the others)."""
+    the others). With `mesh` the chunks stay on the host and the mesh's
+    eval step moves each rank's rows (steps.make_eval_step)."""
     outs = []
     for s in range(0, len(feats), batch):
         chunk = torch.from_numpy(np.ascontiguousarray(feats[s: s + batch]))
-        outs.append(eval_step(params, chunk.to(device)).cpu().numpy())
+        if mesh is None:
+            chunk = chunk.to(device)
+        outs.append(eval_step(params, chunk).cpu().numpy())
     return np.concatenate(outs) if outs else np.zeros((0, 2), np.float32)
 
 
@@ -413,14 +414,30 @@ def _to_device(params, device: torch.device):
     return optim.tree_map(lambda t: t.detach().to(device), params)
 
 
-def prepare_fold_dir(fold: int, cfg: TrainFoldConfig
+def _writer(mesh) -> bool:
+    """Whether this rank writes the files: always without a mesh, else the
+    mesh's first rank."""
+    if mesh is None:
+        return True
+    return pmesh.is_main(mesh)
+
+
+def _barrier(mesh) -> None:
+    """The mesh's ranks wait for its writer's files."""
+    if mesh is not None:
+        pmesh.barrier(mesh)
+
+
+def prepare_fold_dir(fold: int, cfg: TrainFoldConfig, mesh=None
                      ) -> tuple[str, float, float]:
     """Run-dir backup + normalization-stat resolution (reference :433-443,
-    :235-282)."""
+    :235-282). With `mesh` its first rank backs up and clears the dir."""
     fold_dir = os.path.join(cfg.output_root, f"fold{fold}")
-    if not cfg.resume and backup_existing_run_dir(fold_dir):
+    if (_writer(mesh) and not cfg.resume
+            and backup_existing_run_dir(fold_dir)):
         shutil.rmtree(fold_dir)
         print(f"[RunBackup] Cleared original run dir '{fold_dir}' after backup.")
+    _barrier(mesh)
     os.makedirs(fold_dir, exist_ok=True)
     mean, std, src = stats_mod.load_fold_normalization(cfg.data_dir, fold)
     print(f"[Normalization] fold {fold}: mean={mean:.6f} std={std:.6f} ({src})")
@@ -487,19 +504,24 @@ def finalize_fold(fold: int, cfg: TrainFoldConfig, fold_dir: str, model_cfg,
                   mean: float, std: float, best_params, best_epoch: int,
                   best_f1: float, eval_feats, eval_y, has_val: bool,
                   test_feats, test_y, eval_step, device, tracker,
-                  history, class_weights=None) -> dict[str, float]:
+                  history, class_weights=None, mesh=None
+                  ) -> dict[str, float]:
     """Best-model export + final metrics + CM artifacts (mirrors the
     reference's fold{k}/best export and per-split reports, :521-524,
     :542-644). The per-split metric dicts are shaped like
     `trainer.evaluate()` output — eval_-prefixed metrics plus eval_loss,
     speed metrics and the final epoch — so cv_metrics.npy keys match the
-    executed reference."""
+    executed reference. With `mesh` every rank evaluates (the eval step
+    gathers over it) and its first rank writes."""
     print(f"[Best] fold {fold}: epoch {best_epoch} eval_f1={best_f1:.4f}")
+    writer = _writer(mesh)
     best_dir = os.path.join(fold_dir, "best")
     labels_map = {i: name for i, name in enumerate(STAGE_LABELS[cfg.stage])}
-    convert.save_hf_model_dir(best_params, model_cfg, best_dir, labels_map)
-    save_feature_extractor_config(best_dir, mean, std,
-                                  max_length=model_cfg.max_length)
+    if writer:
+        convert.save_hf_model_dir(best_params, model_cfg, best_dir,
+                                  labels_map)
+        save_feature_extractor_config(best_dir, mean, std,
+                                      max_length=model_cfg.max_length)
 
     best_params = _to_device(best_params, device)
     loss_fn = _make_loss(cfg, class_weights)
@@ -509,7 +531,7 @@ def finalize_fold(fold: int, cfg: TrainFoldConfig, fold_dir: str, model_cfg,
     prefix = "val" if has_val else "test_during_train"
     t0 = time.perf_counter()
     logits = _predict(eval_step, best_params, eval_feats, cfg.eval_batch_size,
-                      device)
+                      device, mesh)
     eval_rt = time.perf_counter() - t0
     for k, v in metrics_mod.hf_eval_metrics(
             logits, eval_y, runtime=eval_rt, epoch=final_epoch,
@@ -525,7 +547,7 @@ def finalize_fold(fold: int, cfg: TrainFoldConfig, fold_dir: str, model_cfg,
     else:
         t0 = time.perf_counter()
         test_logits = _predict(eval_step, best_params, test_feats,
-                               cfg.eval_batch_size, device)
+                               cfg.eval_batch_size, device, mesh)
         test_rt = time.perf_counter() - t0
     for k, v in metrics_mod.hf_eval_metrics(
             test_logits, test_y, runtime=test_rt, epoch=final_epoch,
@@ -539,7 +561,7 @@ def finalize_fold(fold: int, cfg: TrainFoldConfig, fold_dir: str, model_cfg,
             # (train_ast_stage2_cross_validation.py:592-597)
             metrics[f"test_{k.replace('eval_', '')}"] = v
 
-    if not cfg.dry_run:
+    if writer and not cfg.dry_run:
         splits = [("test", test_logits, test_y)]
         if has_val:
             splits.append(("val", logits, eval_y))
@@ -556,8 +578,10 @@ def finalize_fold(fold: int, cfg: TrainFoldConfig, fold_dir: str, model_cfg,
                 _track_split_report(tracker, cfg.stage, fold, split_name, cm,
                                     yy, lg.argmax(1), eval_dir)
 
-    with open(os.path.join(fold_dir, "history.json"), "w") as f:
-        json.dump(history, f, indent=2)
+    if writer:
+        with open(os.path.join(fold_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=2)
+    _barrier(mesh)
     return metrics
 
 
@@ -576,13 +600,16 @@ class FoldProgress:
 def epoch_bookkeeping(cfg: TrainFoldConfig, fold_dir: str, epoch: int,
                       steps_per_epoch: int, checkpoint_limit: int, m: dict,
                       has_val: bool, prog: FoldProgress, snapshot,
-                      rng_state, label: str = "") -> None:
+                      rng_state, label: str = "", mesh=None) -> None:
     """The epoch tail: best-F1/patience update (reference
     load_best_model_at_end + EarlyStoppingCallback semantics), best-weights
     persist for resume, rotating full checkpoint (save_total_limit), and the
     early-stop decision — sets prog.stopped. `snapshot()` -> (params_host,
     opt_state) for this fold; the caller appends to prog.history BEFORE
-    calling."""
+    calling. With `mesh` its first rank writes the files and the others
+    wait at a barrier: every rank holds the same metrics, so all take the
+    same branches."""
+    writer = _writer(mesh)
     params_now, opt_now = snapshot()
     f1 = m["f1"]
     # HF EarlyStoppingCallback.check_metric_value resets the patience
@@ -605,22 +632,26 @@ def epoch_bookkeeping(cfg: TrainFoldConfig, fold_dir: str, epoch: int,
             prog.best_epoch = epoch
         prog.patience_left -= 1
 
-    if prog.best_epoch == epoch:  # persist best weights for resume
+    if writer and prog.best_epoch == epoch:  # best weights for resume
         convert.write_safetensors(
             _flat_params(prog.best_params),
             os.path.join(fold_dir, "best_params.safetensors"))
 
     ck = os.path.join(fold_dir, f"checkpoint-{epoch * steps_per_epoch}")
-    save_checkpoint(ck, params_now, opt_now, {
-        "epoch": epoch, "best_f1": prog.best_f1,
-        "best_epoch": prog.best_epoch,
-        "patience_left": prog.patience_left,
-        "rng_state": rng_state,
-        "history": prog.history,
-    })
+    if writer:
+        save_checkpoint(ck, params_now, opt_now, {
+            "epoch": epoch, "best_f1": prog.best_f1,
+            "best_epoch": prog.best_epoch,
+            "patience_left": prog.patience_left,
+            "rng_state": rng_state,
+            "history": prog.history,
+        })
     prog.checkpoints.append(ck)
     while len(prog.checkpoints) > checkpoint_limit:
-        shutil.rmtree(prog.checkpoints.pop(0), ignore_errors=True)
+        old = prog.checkpoints.pop(0)
+        if writer:
+            shutil.rmtree(old, ignore_errors=True)
+    _barrier(mesh)
 
     if has_val and cfg.enable_early_stopping and prog.patience_left <= 0:
         print(f"[EarlyStop]{label} no f1 improvement > "
@@ -653,7 +684,35 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
     564-637)."""
     print(f"\n===== {cfg.stage} Fold {fold} =====")
     device = resolve_device(cfg.device)
-    fold_dir, mean, std = prepare_fold_dir(fold, cfg)
+    mesh = None
+    if (cfg.num_devices or 1) > 1 or (cfg.num_slices or 1) > 1:
+        # a batch size that never divides would run every batch whole on
+        # every rank while the banner claims data parallelism — reject it
+        # before any run-dir side effect (batch_size is CLI-exposed)
+        n_dev = cfg.num_devices or 1
+        if n_dev > 1 and cfg.batch_size % n_dev != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is not divisible by the "
+                f"{n_dev}-device mesh; every batch would fall back to a "
+                f"single device — choose a batch_size divisible by "
+                f"num_devices")
+        mesh = pmesh.make_mesh(cfg.num_devices, cfg.num_slices,
+                               device=cfg.device)
+    if mesh is not None:
+        n_dev = pmesh.mesh_size(mesh)
+        topo = " x ".join(f"{mesh.mesh.shape[i]} ({a})"
+                          for i, a in enumerate(mesh.mesh_dim_names))
+        print(f"[Mesh] data-parallel training over {n_dev} devices: {topo}")
+        # eval_batch_size is not CLI-exposed and only affects eval-side
+        # speed (per-sample logits do not depend on the chunk): round it
+        # up to the next mesh multiple instead of erroring
+        if cfg.eval_batch_size % n_dev != 0:
+            bumped = -(-cfg.eval_batch_size // n_dev) * n_dev
+            print(f"[Mesh] eval_batch_size {cfg.eval_batch_size} -> "
+                  f"{bumped} (rounded up to a {n_dev}-device multiple so "
+                  f"eval chunks shard)")
+            cfg = dataclasses.replace(cfg, eval_batch_size=bumped)
+    fold_dir, mean, std = prepare_fold_dir(fold, cfg, mesh)
 
     params, model_cfg = init_model(cfg)
     train_x, train_y, test_x, test_y, val_x, val_y = load_fold_splits(fold,
@@ -698,12 +757,13 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
         print(f"[GradAccum] {accum} micro-batches of {cfg.batch_size} per "
               f"update (effective batch {accum * cfg.batch_size})")
         grad_step, apply_step = steps.make_accum_steps(
-            tx, model_cfg, loss_fn, dtype=cfg.dtype)
+            tx, model_cfg, loss_fn, dtype=cfg.dtype, mesh=mesh)
         train_step = None
     else:
         train_step = steps.make_train_step(tx, model_cfg, loss_fn,
-                                           dtype=cfg.dtype)
-    eval_step = steps.make_eval_step(model_cfg, dtype=cfg.dtype)
+                                           dtype=cfg.dtype, mesh=mesh)
+    eval_step = steps.make_eval_step(model_cfg, dtype=cfg.dtype, mesh=mesh,
+                                     device=device)
 
     checkpoint_limit = 1 if cfg.dry_run else max(2, (cfg.num_epochs + 1) // 2)
     epoch_rng = np.random.default_rng(cfg.seed)
@@ -740,6 +800,10 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
         else:
             print("[Resume] no checkpoint found; training from scratch")
 
+    if mesh is not None:
+        pmesh.replicate(params, mesh)
+        pmesh.replicate(opt_state, mesh)
+
     is_stream = isinstance(train_feats, FeatureStream)
     grad_buf = (optim.tree_map(torch.zeros_like, params) if accum > 1
                 else None)
@@ -761,7 +825,11 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
                     train_feats.prefetch(nxt)
             else:
                 batch_feats = train_feats[idx]
-            feats = torch.from_numpy(batch_feats).to(device)
+            # with a mesh the global batch stays on the host: the step
+            # moves this rank's rows
+            feats = torch.from_numpy(batch_feats)
+            if mesh is None:
+                feats = feats.to(device)
             labels = labels_all[idx].to(device)
             step_loss = None
             if accum > 1:
@@ -798,7 +866,7 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
         epoch_loss = float(epoch_loss) / n
 
         logits = _predict(eval_step, params, eval_feats, cfg.eval_batch_size,
-                          device)
+                          device, mesh)
         m = metrics_mod.compute_metrics_from_logits(logits, eval_y)
         m["loss"] = epoch_loss
         prog.history.append({"epoch": epoch, **m})
@@ -816,7 +884,8 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
         epoch_bookkeeping(cfg, fold_dir, epoch, opt_steps_per_epoch,
                           checkpoint_limit, m, has_val, prog,
                           snapshot=lambda: (_to_host(params), opt_state),
-                          rng_state=epoch_rng.bit_generator.state)
+                          rng_state=epoch_rng.bit_generator.state,
+                          mesh=mesh)
         if prog.stopped:
             break
 
@@ -832,7 +901,7 @@ def train_fold(fold: int, cfg: TrainFoldConfig,
                          prog.best_params, prog.best_epoch, prog.best_f1,
                          eval_feats, eval_y, has_val, test_feats, test_y,
                          eval_step, device, tracker, prog.history,
-                         class_weights=class_weights)
+                         class_weights=class_weights, mesh=mesh)
 
 
 def _track_split_report(tracker, stage: str, fold: int, split_name: str,
@@ -1016,8 +1085,12 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
     {"enabled": bool, "project": str, "group": str, "offline": bool,
     "per_fold": bool}. per_fold replicates --wandb-per-fold (reference
     :824-864): one run per fold grouped under the run id, plus a final
-    cv_summary run carrying the aggregate metrics (:922-941)."""
+    cv_summary run carrying the aggregate metrics (:922-941).
+
+    In a process group (several devices) every rank runs this and the
+    first one writes the run's files and keeps its trackers."""
     resolve_device(cfg.device)  # before any file is written
+    writer = pmesh.is_main()
     os.makedirs(cfg.output_root, exist_ok=True)
     run_started = datetime.now()
     topts = tracking_opts or {}
@@ -1070,8 +1143,9 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
     }
     config_path = os.path.join(
         cfg.output_root, f"run_config_{run_config['run_id']}.json")
-    with open(config_path, "w") as f:
-        json.dump(run_config, f, indent=2)
+    if writer:
+        with open(config_path, "w") as f:
+            json.dump(run_config, f, indent=2)
 
     from ..utils import tracking
 
@@ -1080,6 +1154,8 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
                                    else None)
 
     def make_run(name):
+        if not writer:
+            return None
         return tracking.Run(
             project=topts.get("project") or f"zenker-ast-{cfg.stage}",
             name=name, config=run_config, group=group,
@@ -1095,11 +1171,13 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
     def fold_tracker(fold):
         fold_run = (make_run(f"{run_config['run_id']}_fold{fold}")
                     if per_fold_runs else run)
-        if per_fold_runs:
+        if per_fold_runs and fold_run is not None:
             fold_run.log_artifact(config_path)
         return fold_run
 
     def fold_done(fold, fold_run, m):
+        if not writer:
+            return
         shutil.copy2(config_path,
                      os.path.join(cfg.output_root, f"fold{fold}",
                                   "run_config.json"))
@@ -1134,6 +1212,8 @@ def run_cross_validation(folds, cfg: TrainFoldConfig,
             aggregate[f"{name}_mean"] = float(np.mean(vals))
             aggregate[f"{name}_std"] = float(np.std(vals))
 
+    if not writer:
+        return {"per_fold": all_metrics, "aggregate": aggregate}
     np.save(os.path.join(cfg.output_root, "cv_metrics.npy"),
             {"per_fold": all_metrics, "aggregate": aggregate})
     with open(os.path.join(cfg.output_root, "cv_metrics.txt"), "w") as f:

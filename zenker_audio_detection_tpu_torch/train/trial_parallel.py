@@ -28,12 +28,20 @@ the sequential agent's streaming median. A cut trial takes masked no-op
 steps for the rest of the run.
 
 The fold-parallel trainer's restrictions hold (eager featurization, no
-resume, no grad accumulation); every trial must share everything but the
-six swept fields and its output root.
+resume, no grad accumulation, no `num_slices`); every trial must share
+everything but the six swept fields and its output root.
+
+Over several devices (`num_devices`) the trial axis is split over groups
+of ranks as fold_parallel splits folds: `data_per_fold` (the CLI's
+`--data-per-trial`) ranks per group share each batch's rows and sum the
+gradients over the group's "data" sub-mesh. The Hyperband median at a
+rung is taken over every group's trials (one gather per epoch), as JAX
+takes it over the whole trial axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -42,8 +50,12 @@ from torch.func import vmap
 
 from ..infer.cascade import resolve_device
 from . import loop as L, losses, metrics as metrics_mod, optim, steps
-from .fold_parallel import (_lr_factor, make_stacked_train_step, member,
-                            stack, stacked_forward)
+from .fold_parallel import (_all_stopped, _gather_groups, _group_share,
+                            _lr_factor, _validate_groups,
+                            make_stacked_train_step, member, stack,
+                            stacked_eval_logits)
+
+TRIAL_AXIS = "trial"
 
 # the swept hyperparameters (the reference's sweep YAML spaces); everything
 # else must be the same in every stacked trial
@@ -92,9 +104,12 @@ def _check_configs(cfgs: list[L.TrainFoldConfig]) -> None:
     if base.grad_accum > 1:
         raise ValueError("trial-parallel sweeps do not implement gradient "
                          "accumulation (trials share one data batch per "
-                         "step)")
+                         "step); scale data via data_per_fold groups")
     if base.resume:
         raise ValueError("trial-parallel sweeps do not support --resume")
+    if base.num_slices and base.num_slices > 1:
+        raise ValueError("trial-parallel sweeps shard the trial axis over "
+                         "a flat mesh; --num-slices is not supported here")
     if any(cfg.on_epoch_end is not None for cfg in cfgs):
         raise ValueError("on_epoch_end is not supported in trial-parallel "
                          "mode (Hyperband cuts run via `rungs`)")
@@ -118,10 +133,24 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
     (masked no-ops for the rest of the run)."""
     _check_configs(cfgs)
     base = cfgs[0]
+    data_per_trial = base.data_per_fold or 1
+    if data_per_trial > 1 and not (base.num_devices
+                                   and base.num_devices > 1):
+        raise ValueError("data_per_fold > 1 requires num_devices > 1")
+    if base.num_devices and base.num_devices > 1:
+        # validate before run dirs are backed up or data is featurized
+        base = _validate_groups(cfgs, base, data_per_trial, "trial")
+        cfgs = [dataclasses.replace(c, eval_batch_size=base.eval_batch_size)
+                for c in cfgs]
     device = resolve_device(base.device)
-    T = len(cfgs)
-    print(f"\n===== {base.stage} fold {fold}: {T} trials "
+    print(f"\n===== {base.stage} fold {fold}: {len(cfgs)} trials "
           f"(trial-parallel) =====")
+    mesh, data_mesh, mine = _group_share(list(range(len(cfgs))), base,
+                                         data_per_trial, TRIAL_AXIS,
+                                         "trials")
+    all_cfgs = cfgs
+    cfgs = [all_cfgs[t] for t in mine]
+    T = len(cfgs)
 
     params0, model_cfg = L.init_model(base)
     # every trial shares data_dir, so the fold statistics are one value;
@@ -129,7 +158,7 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
     fold_dirs = []
     mean = std = None
     for cfg in cfgs:
-        fd, mean, std = L.prepare_fold_dir(fold, cfg)
+        fd, mean, std = L.prepare_fold_dir(fold, cfg, data_mesh)
         fold_dirs.append(fd)
 
     # one dataset: every trial sees the fold with the same featurization
@@ -169,7 +198,7 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
           else torch.as_tensor(class_weights, device=device))
     train_step = make_stacked_train_step(
         model_cfg, _make_trial_loss(base, cw), optim.decay_mask(params0),
-        dtype=base.dtype, shared_batch=True)
+        dtype=base.dtype, shared_batch=True, mesh=data_mesh)
 
     def per_trial(values):
         return torch.as_tensor(np.asarray(values, np.float32), device=device)
@@ -208,20 +237,23 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
                                            np.zeros(pad, np.float32)])
             step_idx = per_trial([(epoch - 1) * steps_per_epoch + s_idx] * T)
             hp["lr"] = lr_base * _lr_factor(step_idx, total, warm)
+            feats = torch.from_numpy(feats)
             params, opt_state, loss_vals = train_step(
-                params, opt_state, torch.from_numpy(feats).to(device),
+                params, opt_state,
+                feats.to(device) if data_mesh is None else feats,
                 torch.from_numpy(labels).to(device),
                 torch.from_numpy(row_mask).to(device), active, hp)
             epoch_loss += loss_vals.cpu().numpy() * len(idx)
 
         logits_all = []
         for s in range(0, len(eval_feats), base.eval_batch_size):
-            chunk = torch.from_numpy(np.ascontiguousarray(
-                eval_feats[s: s + base.eval_batch_size])).to(device)
-            with torch.no_grad():
-                logits_all.append(stacked_forward(
-                    params, chunk, model_cfg, dtype=base.dtype,
-                    shared_batch=True).cpu().numpy())
+            chunk = np.ascontiguousarray(
+                eval_feats[s: s + base.eval_batch_size])
+            sharded = data_mesh is not None and len(chunk) % len(
+                data_mesh.mesh) == 0
+            logits_all.append(stacked_eval_logits(
+                params, chunk, model_cfg, base.dtype, device,
+                shared_batch=True, mesh=data_mesh if sharded else None))
         # an empty eval split (an empty-but-present val npy): the guard of
         # loop._predict
         eval_logits = (np.concatenate(logits_all, axis=1) if logits_all
@@ -236,7 +268,7 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
                                                         eval_y)
             m["loss"] = float(epoch_loss[t] / n)
             prog.history.append({"epoch": epoch, **m})
-            print(f"[Trial {t} Epoch {epoch}/{num_epochs}] "
+            print(f"[Trial {mine[t]} Epoch {epoch}/{num_epochs}] "
                   f"loss={m['loss']:.4f} eval_f1={m['f1']:.4f}")
 
             L.epoch_bookkeeping(
@@ -246,24 +278,28 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
                     member(params, t),
                     L.sequential_opt_layout(member(opt_state, t))),
                 rng_state=epoch_rng.bit_generator.state,
-                label=f" trial {t}:")
+                label=f" trial {mine[t]}:", mesh=data_mesh)
             if not prog.stopped and epoch in rungs:
-                rung_values.append((t, m[rung_metric]))
+                rung_values.append((mine[t], m[rung_metric]))
 
+        if mesh is not None:  # every group's trials at the rung
+            rung_values = _gather_groups(rung_values, mesh, data_per_trial)
         if len(rung_values) >= 2:
             med = float(np.median([v for _, v in rung_values]))
-            for t, v in rung_values:
+            for trial, v in rung_values:
                 worse = v < med if goal == "maximize" else v > med
-                if worse:
-                    print(f"[Hyperband] cut trial {t} at rung {epoch}: "
+                if worse and trial in mine:
+                    t = mine.index(trial)
+                    print(f"[Hyperband] cut trial {trial} at rung {epoch}: "
                           f"{v:.4f} vs median {med:.4f}")
                     progs[t].stopped = True
                     cut_at_rung[t] = epoch
-        if all(p.stopped for p in progs):
+        if _all_stopped(progs, mesh):
             break
 
     all_metrics = []
-    single_eval = steps.make_eval_step(model_cfg, dtype=base.dtype)
+    single_eval = steps.make_eval_step(model_cfg, dtype=base.dtype,
+                                       mesh=data_mesh, device=device)
     for t in range(T):
         prog = progs[t]
         if prog.best_params is None:
@@ -273,8 +309,8 @@ def train_trials_parallel(fold: int, cfgs: list[L.TrainFoldConfig], *,
             prog.best_params, prog.best_epoch, prog.best_f1, eval_feats,
             eval_y, has_val, test_feats, np.asarray(test_y, np.int64),
             single_eval, device, None, prog.history,
-            class_weights=class_weights)
+            class_weights=class_weights, mesh=data_mesh)
         if cut_at_rung[t] is not None:
             m["hyperband_cut_at_epoch"] = cut_at_rung[t]
         all_metrics.append(m)
-    return all_metrics
+    return _gather_groups(all_metrics, mesh, data_per_trial)

@@ -227,6 +227,7 @@ def run_sweep(sweep_config_path: str, base_cfg, *, count: int = 10,
     every trial trains at once in one vmapped step on that device
     (train/trial_parallel.py; the rung cut becomes the true simultaneous
     Hyperband median instead of the sequential streaming median)."""
+    from ..parallel import mesh as pmesh
     from ..train import loop as train_loop
 
     sweep = load_sweep_config(sweep_config_path)
@@ -300,17 +301,23 @@ def run_sweep(sweep_config_path: str, base_cfg, *, count: int = 10,
         print(f"\n[Sweep trial {trial}] fold={fold} {overrides}")
         return fold, cfg
 
+    # in a process group (several devices) every rank runs the agent on the
+    # same draws and the first one writes
+    writer = pmesh.is_main()
+
     def record_trial(trial, fold, sampled, metrics):
         nonlocal best
         value = _objective_value(metrics, fold, metric)
         record = {"trial": trial, "fold": fold, "params": sampled,
                   "objective": metric, "value": value, "metrics": metrics}
         results.append(record)
-        wb_run = tracking.active_wandb_run()
+        wb_run = tracking.active_wandb_run() if writer else None
         if wb_run is not None:
             _log_trial_to_wandb(wb_run, sampled, metric, value, metrics, fold)
-        with open(os.path.join(output_dir, "sweep_results.jsonl"), "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if writer:
+            with open(os.path.join(output_dir, "sweep_results.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(record) + "\n")
         better = (best is None or
                   (value > best["value"] if goal == "maximize"
                    else value < best["value"]))
@@ -318,9 +325,10 @@ def run_sweep(sweep_config_path: str, base_cfg, *, count: int = 10,
             best = record
             # atomic: overwritten on every improvement; a kill mid-write
             # must not destroy the previous best along with the new one
-            fsio.atomic_json_dump(
-                record, os.path.join(output_dir, "best_config.json"),
-                indent=2)
+            if writer:
+                fsio.atomic_json_dump(
+                    record, os.path.join(output_dir, "best_config.json"),
+                    indent=2)
         print(f"[Sweep trial {trial}] {metric}={value:.4f} "
               f"(best={best['value']:.4f})")
 
