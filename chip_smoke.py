@@ -12,13 +12,15 @@ fails the run loudly:
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
   2. build: compiles every kernel source with nvcc (one per source, in
      parallel), prints each instance's registers and spills and checks
-     that the bf16 D=64 instance serving mha_packed (the warp-specialised
-     walk of csrc/attention_ws.cu) keeps to its launch bounds' registers
-     with its setmaxnreg in force, and mha_batched_heads' to 128; prints the
+     that the bf16 D=64 instances serving mha_packed (the warp-specialised
+     walk of csrc/attention_ws.cu) and the backward (the walks of
+     csrc/attention_bwd.cu) keep to their launch bounds' registers with
+     their setmaxnreg in force, and mha_batched_heads' to 128; prints the
      CTAs per SM the card fits of every instance of csrc/attention_ws.cu and
      csrc/attention_pipelined.cu (mha_packed, mha_packed_lse, mha,
-     mha_pairs, mha_batched_heads, mha_fused, each in bf16 and f32) and
-     fails below the number that launch_geometry's grid assumes;
+     mha_pairs, mha_batched_heads, mha_fused, each in bf16 and f32) and of
+     the bf16 backward kernels, and fails below the number that
+     launch_geometry's grid assumes;
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, and on the persistent walk's hard
      cases: B=1 (fewer work items than SMs), B=3, NH 1, 3 and 28, D=32,
@@ -1448,12 +1450,18 @@ def phase_train_small_f32(ast_mod, torch) -> None:
 
 # the bf16 D=64 instances of the main path and of the pipelined walk:
 # csrc/attention_ws.cu's ws_kernel<64, false> (mha_packed; one CTA per SM,
-# whose setmaxnreg then moves registers to the consumers) and
+# whose setmaxnreg then moves registers to the consumers),
 # csrc/attention_pipelined.cu's batched_kernel<64> (mha_batched_heads; two
-# 8-warp CTAs per SM)
-REGISTER_CAPS = {"attention_ws": ("mha_packed", "9ws_kernelILi64ELb0EE"),
-                 "attention_pipelined": ("mha_batched_heads",
-                                         "14batched_kernelILi64EE")}
+# 8-warp CTAs per SM) and csrc/attention_bwd.cu's dq_ws_kernel<64> and
+# dkdv_ws_kernel<64> (the training route's backward; one CTA per SM, with
+# setmaxnreg as ws_kernel)
+REGISTER_CAPS = {"attention_ws": (("mha_packed", "9ws_kernelILi64ELb0EE"),),
+                 "attention_pipelined": (("mha_batched_heads",
+                                          "14batched_kernelILi64EE"),),
+                 "attention_bwd": (("mha_packed_bwd_dq",
+                                    "12dq_ws_kernelILi64EE"),
+                                   ("mha_packed_bwd_dkdv",
+                                    "14dkdv_ws_kernelILi64EE"))}
 
 
 def register_cap(A, name: str) -> int:
@@ -1464,13 +1472,18 @@ def register_cap(A, name: str) -> int:
     return 65536 // (geo.threads * geo.ctas_per_sm) // 8 * 8
 
 
-def check_registers(source: str, report: str, cap: int) -> None:
-    """The bf16 D=64 instance of `source` named in REGISTER_CAPS must keep
-    to `cap` registers; no setmaxnreg of the source may have been
+def check_registers(source: str, report: str, A) -> None:
+    """Each bf16 D=64 instance of `source` named in REGISTER_CAPS must keep
+    to its `register_cap`; no setmaxnreg of the source may have been
     ignored."""
     if "setmaxnreg ignored" in report:
         raise AssertionError(f"{source}: ptxas ignored a setmaxnreg")
-    name, mangled = REGISTER_CAPS[source]
+    for name, mangled in REGISTER_CAPS[source]:
+        check_instance_registers(report, name, mangled, register_cap(A, name))
+
+
+def check_instance_registers(report: str, name: str, mangled: str,
+                             cap: int) -> None:
     lines = report.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and mangled in line:
@@ -1486,7 +1499,8 @@ def check_registers(source: str, report: str, cap: int) -> None:
 
 def check_occupancy(A) -> dict:
     """Every instance of csrc/attention_pipelined.cu and
-    csrc/attention_ws.cu must fit on an SM as
+    csrc/attention_ws.cu, and the bf16 ones of csrc/attention_bwd.cu, must
+    fit on an SM as
     many times as launch_geometry's grid assumes (a register creep past the
     launch bounds or more shared memory would lower it); returns
     {name: {dtype: {D: CTAs per SM}}}."""
@@ -1504,6 +1518,18 @@ def check_occupancy(A) -> dict:
                     raise AssertionError(
                         f"{name} {dtype} D={D} fits {ctas} CTAs per SM, "
                         f"fewer than the {geo.ctas_per_sm} its grid assumes")
+    for name in ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv"):
+        for D in A.KERNEL_HEAD_DIMS:
+            geo = A.launch_geometry(name, 1, 64, 2, D, 2)
+            ctas = A.bwd_occupancy(name, D)
+            found.setdefault(name, {}).setdefault("bf16", {})[D] = ctas
+            log(f"[build] {name} bf16 D={D}: {ctas} CTAs per SM "
+                f"({geo.threads} threads, {geo.smem} B of shared memory; "
+                f"the grid assumes {geo.ctas_per_sm})")
+            if ctas < geo.ctas_per_sm:
+                raise AssertionError(
+                    f"{name} bf16 D={D} fits {ctas} CTAs per SM, fewer "
+                    f"than the {geo.ctas_per_sm} its grid assumes")
     return found
 
 
@@ -3312,8 +3338,7 @@ def main() -> int:
                                        "spill")):
                 log(f"[build] {source}: {line.strip()}")
         if source in REGISTER_CAPS:
-            check_registers(source, report,
-                            register_cap(A, REGISTER_CAPS[source][0]))
+            check_registers(source, report, A)
     occupancy = check_occupancy(A)
 
     record = phase_kernel_vs_plain(A)
@@ -3329,7 +3354,7 @@ def main() -> int:
                                  .get(r["name"], r["name"])]
     records += train_records
     for r in records:
-        if r["name"] in PIPELINED:
+        if r["name"] in occupancy:
             r["ctas_per_sm"] = occupancy[r["name"]]
     phase_train_small_f32(ast_mod, torch)
     loop_ms = phase_train_loop(A, C, ast_mod, torch, smi)

@@ -261,6 +261,8 @@ def test_every_bound_entry_point_is_called():
               if part == "" or kind in A._PIPELINED}
     called |= {("attention_bwd", f"mha_packed_bwd_{part}_{suffix}")
                for part in ("dq", "dkdv") for suffix in ("bf16", "f32")}
+    called |= {("attention_bwd", f"mha_packed_bwd_{part}_occupancy_bf16")
+               for part in ("dq", "dkdv")}
     bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
              for name in names}
     assert bound == called

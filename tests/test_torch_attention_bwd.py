@@ -139,11 +139,31 @@ def test_lse_forward_walks_every_row_once(S):
 @pytest.mark.parametrize("kind", ["mha_packed_bwd_dq", "mha_packed_bwd_dkdv"])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 146, 1214])
 def test_bwd_geometry_covers_every_row(kind, S):
-    """Query tiles (bwd_dq) or key tiles (bwd_dkdv) of 64 rows cover every
-    row once; one block per (tile, head, batch element), 4 warps, static
-    shared memory only."""
+    """bf16: the persistent walk of csrc/attention_bwd.cu, one CTA per SM
+    (at most one per item) of a producer and 64-row consumer warpgroups,
+    whose items cover every (batch element, head, row) once, rows being
+    query rows (bwd_dq) or keys (bwd_dkdv); its dynamic shared memory holds
+    the aligned ring of (64, D) tile pairs (bwd_dkdv's stages also their 64
+    lse and delta values) and two mbarriers a stage. f32: 64-row tiles, one
+    4-warp block per (tile, head, batch element), static shared memory
+    only."""
     B, NH, D = 3, 12, 64
-    geo = A.launch_geometry(kind, B, S, NH, D, 2)
+    consumers, stages = A.bwd_tile(kind)
+    geo = A.launch_geometry(kind, B, S, NH, D, 2, sms=132)
+    assert geo.rows == 64 * consumers and geo.ctas_per_sm == 1
+    assert geo.threads == 128 * (consumers + 1)
+    stats = 2 * 64 * 4 if kind == "mha_packed_bwd_dkdv" else 0
+    assert geo.smem == 1024 + stages * (2 * 64 * D * 2 + stats) + 16 * stages
+    assert geo.smem <= A.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="no backward"):
+        A.bwd_occupancy("mha_packed", D)
+    items = B * NH * A.cdiv(S, geo.rows)
+    assert geo.grid == (min(items, 132), 1, 1)
+    rows = [(b, h, r) for cta in _walk(geo, B, S, NH) for b, h, r0 in cta
+            for r in range(r0, min(r0 + geo.rows, S))]
+    assert sorted(rows) == [(b, h, r) for b in range(B) for h in range(NH)
+                            for r in range(S)]
+    geo = A.launch_geometry(kind, B, S, NH, D, 4)
     assert geo.grid[1:] == (NH, B)
     assert geo.rows == 64 and geo.threads == 128 and geo.smem == 0
     covered = [r for x in range(geo.grid[0])
@@ -257,3 +277,27 @@ def test_bwd_kernel_checks_head_width_and_layout():
                             {"lse": _t(1, 2, 8)})
     A._check_bwd_kernel(q64, q64, q64, 2, {"o": q64, "g": q64},
                         {"lse": _t(1, 2, 8), "delta": _t(1, 2, 8)})
+
+
+@pytest.mark.parametrize("ptr,shape,strides,match", [
+    (8, (1, 8, 128), (1024, 128, 1), "16-byte aligned for TMA"),
+    (0, (1, 8, 36), (288, 36, 1), "pitches that are multiples"),
+    (0, (2, 8, 128), (1 << 39, 128, 1), "below 2"),
+    (0, (1, (1 << 32) + 1, 64), (((1 << 32) + 1) * 64, 64, 1),
+     "dimensions of at most"),
+])
+def test_bwd_kernel_refuses_what_tma_cannot_map(ptr, shape, strides, match):
+    """The bf16 backward kernels read q, k, v and g through TMA tensor maps
+    over (B, S, H): a base address off 16 bytes, a row or batch pitch that
+    is not a multiple of 16 bytes or reaches 2^40 bytes, or a dimension
+    beyond 2^32 raise before any launch; the tensors the kernels take
+    pass."""
+    with pytest.raises(ValueError, match=match):
+        A._check_tma("k", ptr, shape, strides, 2)
+    A._check_tma("k", 0, (16, 1214, 768), (1214 * 768, 768, 1), 2)
+    x = torch.zeros(2, 70, 128, dtype=torch.bfloat16)
+    A._check_bwd_kernel(x, x, x, 2, {"o": x, "g": x},
+                        {"lse": _t(2, 2, 70)})
+    shifted = torch.zeros(8 + 2 * 70 * 128, dtype=torch.bfloat16)[8:]
+    shifted = shifted.view(2, 70, 128)  # 16 bytes on
+    A._check_bwd_kernel(x, x, x, 2, {"g": shifted}, {"lse": _t(2, 2, 70)})

@@ -3,8 +3,9 @@ JAX package's, on tests/test_train_loop.py's tiny task.
 
 `run_cross_validation([1], cfg)` runs in both packages from ONE parameter
 tree: each `init_model` is replaced by one that returns the JAX package's
-`init_params` tree (the port's through `params_from_jax`), since the JAX
-PRNGKey stream cannot be reproduced. Hidden 32, 2 layers, 4 heads, f32,
+`init_params` tree at a tiny width (the port's through `params_from_jax`;
+tests/test_torch_prng.py holds the two `init_model`s to each other, bit for
+bit). Hidden 32, 2 layers, 4 heads, f32,
 batch 4, no augmentation, 3 epochs, on the CPU (`device="cpu"`). The
 per-epoch train losses and eval metrics agree at 1e-4, the fold metrics
 too, and the best directory's parameters at 1e-4 except the key bias:

@@ -76,11 +76,10 @@
 //     which round to 0 in p's sums);
 //   * a consumer loads the next item's Q fragments while it computes this
 //     one.
-// The tensor map encoder comes from cudaGetDriverEntryPoint, so the library
-// needs nvcc alone (no -lcuda). tools/packed_ws.py builds this source with
+// The mbarrier and TMA helpers and the tensor map are hopper.cuh's; its
+// encoder comes from cudaGetDriverEntryPoint, so the library needs nvcc
+// alone (no -lcuda). tools/packed_ws.py builds this source with
 // other tile shapes and softmax forms and times them side by side.
-
-#include <cuda.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -115,48 +114,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// ------------------------------------------------------- mbarrier and TMA
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// waits until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// box (D lanes, kKeys keys, 1 batch element) at (lane c0, key c1, element
-// c2)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
 }
 
 template <int D>
@@ -435,48 +392,6 @@ ws_kernel(const __grid_constant__ CUtensorMap tk,
 }
 
 // ------------------------------------------------------------------ launch
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                            void*, const cuuint64_t*, const cuuint64_t*,
-                            const cuuint32_t*, const cuuint32_t*,
-                            CUtensorMapInterleave, CUtensorMapSwizzle,
-                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-Encode encoder() {
-  static Encode fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<Encode>(p);
-  }
-  return fn;
-}
-
-// (B, S, H) bf16 at ptr as a 3-D map, boxes of (D lanes, kKeys keys, 1)
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                int D) {
-  Encode encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)S * H * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)kKeys, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The instance for D, with the threads and dynamic shared memory it needs;
 // nullptr for a D it is not compiled for. These numbers are
 // ops/attention.py:launch_geometry's.
@@ -513,8 +428,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const void* kern = prepared<kLse>(D, threads, smem);
   CUtensorMap tk, tv;
   if (kern == nullptr || gy != 1 || gz != 1 ||
-      !tensor_map(&tk, k, B, S, NH * D, D) ||
-      !tensor_map(&tv, v, B, S, NH * D, D))
+      !tensor_map(&tk, k, B, S, NH * D, D, kKeys) ||
+      !tensor_map(&tv, v, B, S, NH * D, D, kKeys))
     return (int)cudaErrorInvalidValue;
   float scale_log2 = kLog2e / sqrtf((float)D);
   void* args[] = {&tk, &tv, &q, &o, &lse, &B, &S, &NH, &scale_log2};

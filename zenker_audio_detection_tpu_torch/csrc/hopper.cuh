@@ -1,10 +1,13 @@
 // Hopper's warpgroup products (wgmma) and the shared-memory layout they
-// read, for the bf16 bodies of attention_pipelined.cu and attention_ws.cu.
-// Each source is its own library, so everything here is internal to the
-// file that includes it.
+// read, for the bf16 bodies of attention_pipelined.cu, attention_ws.cu and
+// attention_bwd.cu; the mbarriers and TMA loads that feed them, and the
+// tensor map of a packed (B, S, H) bf16 tensor. Each source is its own
+// library, so everything here is internal to the file that includes it.
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -131,6 +134,95 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
     wgmma_n64<kTrans>(d, a, desc, scale_d);
   else
     wgmma_n32<kTrans>(d, a, desc, scale_d);
+}
+
+// ------------------------------------------------------- mbarrier and TMA
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// box (D lanes, rows, 1 batch element) of a tensor_map at (lane c0, row
+// c1, element c2)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ------------------------------------------------------- tensor map (host)
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                            void*, const cuuint64_t*, const cuuint64_t*,
+                            const cuuint32_t*, const cuuint32_t*,
+                            CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline Encode encoder() {
+  static Encode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<Encode>(p);
+  }
+  return fn;
+}
+
+// (B, S, H) bf16 at ptr as a 3-D map, boxes of (D lanes, rows, 1) in the
+// swizzle smem_desc reads; rows past S of a batch element are zero-filled
+// (they are not the next element's). False where the encoder refuses it:
+// a base address or a row pitch that is not 16-byte aligned, a pitch of
+// 2^40 bytes or more.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
+                       int H, int D, int rows) {
+  Encode encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)S * H * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..ops import attention as attn_ops
+from ..utils import prng
 from ..utils.precision import full_f32
 
 Params = dict[str, Any]
@@ -102,14 +103,30 @@ class ASTConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-def _trunc_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
-    """torch `nn.init.trunc_normal_(std=std)` in distribution.
+Rng = np.random.Generator | np.ndarray  # a Generator or a utils.prng key
+
+
+def _trunc_normal(rng: Rng, shape, std: float,
+                  jit: bool = False) -> np.ndarray:
+    """torch `nn.init.trunc_normal_(std=std)` in distribution, f32.
 
     torch's default bounds a=-2, b=2 are absolute values, i.e. ±(2/std)
     sigmas: ≥100σ at the AST initializer_range 0.02, so the draw is an
-    effectively untruncated normal(0, std). Out-of-bound draws are redrawn."""
-    x = rng.standard_normal(shape)
+    effectively untruncated normal(0, std). With a numpy `Generator`,
+    out-of-bound draws are redrawn. With a `utils.prng` key, the draw is
+    the JAX package's `_trunc_normal` bit for bit: `std * normal` where
+    the bounds lie beyond 10σ, else `std * truncated_normal`; `jit` says
+    that the JAX function ran inside a jitted one (`init_params`), where
+    XLA folds the constants: std into normal's factor, the bounds' erf."""
     bound = 2.0 / std
+    if prng.is_key(rng):
+        if bound < 10.0:
+            return np.float32(std) * prng.truncated_normal(
+                rng, -bound, bound, shape, jit=jit)
+        if jit:
+            return prng.normal(rng, shape, std)
+        return np.float32(std) * prng.normal(rng, shape)
+    x = rng.standard_normal(shape)
     if bound < 10.0:
         bad = np.abs(x) > bound
         while bad.any():
@@ -118,14 +135,21 @@ def _trunc_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
     return (std * x).astype(np.float32)
 
 
-def init_params(rng: np.random.Generator, config: ASTConfig) -> Params:
-    """Random f32 init on the CPU matching HF's scheme in distribution (not
-    bitwise, and not the JAX package's draws): trunc-normal(0.02) dense and
-    conv kernels, zero biases, unit LayerNorm scales, and zero CLS, DIST and
-    position embeddings (ASTPreTrainedModel._init_weights)."""
+def init_params(rng: Rng, config: ASTConfig) -> Params:
+    """Random f32 init on the CPU matching HF's scheme: trunc-normal(0.02)
+    dense and conv kernels, zero biases, unit LayerNorm scales, and zero
+    CLS, DIST and position embeddings (ASTPreTrainedModel._init_weights).
+
+    `rng` is a numpy `Generator` (draws in HF's distribution, not the JAX
+    package's) or a `utils.prng` key: then the JAX package's
+    `init_params(key)` bit for bit, `split(key, 8)` giving one key per
+    tensor in its order (patch kernel, q, k, v, attn_out, fc1, fc2, head),
+    the patch kernel drawn in JAX's (p, p, 1, h) layout and laid out
+    (h, 1, p, p)."""
     h, i = config.hidden_size, config.intermediate_size
     L = config.num_hidden_layers
     std = config.initializer_range
+    keys = iter(prng.split(rng, 8) if prng.is_key(rng) else [rng] * 8)
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x))
@@ -135,7 +159,7 @@ def init_params(rng: np.random.Generator, config: ASTConfig) -> Params:
 
     def dense(fan_in, fan_out, layers=None):
         shape = (fan_in, fan_out) if layers is None else (layers, fan_in, fan_out)
-        return {"kernel": t(_trunc_normal(rng, shape, std)),
+        return {"kernel": t(_trunc_normal(next(keys), shape, std, jit=True)),
                 "bias": zeros(*shape[:-2], fan_out)}
 
     def ln(layers=None):
@@ -144,9 +168,11 @@ def init_params(rng: np.random.Generator, config: ASTConfig) -> Params:
                 "bias": zeros(*shape)}
 
     p = config.patch_size
+    k0 = next(keys)
+    patch = (_trunc_normal(k0, (p, p, 1, h), std, jit=True).transpose(
+        3, 2, 0, 1) if prng.is_key(k0) else _trunc_normal(k0, (h, 1, p, p), std))
     return {
-        "patch_embed": {"kernel": t(_trunc_normal(rng, (h, 1, p, p), std)),
-                        "bias": zeros(h)},
+        "patch_embed": {"kernel": t(patch), "bias": zeros(h)},
         "cls_token": zeros(1, 1, h),
         "dist_token": zeros(1, 1, h),
         "pos_embed": zeros(1, config.seq_length, h),
@@ -165,14 +191,15 @@ def init_params(rng: np.random.Generator, config: ASTConfig) -> Params:
     }
 
 
-def reinit_head(rng: np.random.Generator, params: Params, config: ASTConfig,
+def reinit_head(rng: Rng, params: Params, config: ASTConfig,
                 num_labels: int | None = None) -> Params:
     """Re-initialize only the classifier head, as the reference does after
     `from_pretrained(..., ignore_mismatched_sizes=True)` + `init_weights()`:
     the other parameters keep their values (and tensors), the new head has
     unit/zero LayerNorm, a zero bias and a N(0, initializer_range) kernel
-    drawn from `rng` (the JAX function takes a key; the draws differ). The
-    head lands on the device of the other parameters."""
+    drawn from `rng`: a `utils.prng` key gives the JAX function's kernel
+    for that key bit for bit, a numpy `Generator` a draw of the same
+    distribution. The head lands on the device of the other parameters."""
     n = num_labels if num_labels is not None else config.num_labels
     h = config.hidden_size
     device = params["ln_final"]["scale"].device

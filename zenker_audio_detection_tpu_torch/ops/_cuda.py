@@ -51,8 +51,13 @@ def _walks(names: list[str]) -> dict:
 _SAME_AS_PACKED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
                    "mha_qblock")
 _ENTRY_POINTS = {
-    "attention_bwd": {f"mha_packed_bwd_{part}_{dtype}": (8, 8, True)
-                      for part in ("dq", "dkdv") for dtype in _DTYPES},
+    # the launches (q, k, v, ... and B, S, NH, D, grid, threads, smem), and
+    # the CTAs per SM of the bf16 walk's instances
+    "attention_bwd": {
+        **{f"mha_packed_bwd_{part}_{dtype}": (8, 9, True)
+           for part in ("dq", "dkdv") for dtype in _DTYPES},
+        **{f"mha_packed_bwd_{part}_occupancy_bf16": (0, 3, False)
+           for part in ("dq", "dkdv")}},
     "attention_pipelined": _walks(
         [f"{fn}_{dtype}" for fn in ("mha_batched_heads", "mha_fused")
          for dtype in _DTYPES] + [f"{fn}_f32" for fn in _SAME_AS_PACKED]),

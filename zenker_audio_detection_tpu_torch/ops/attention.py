@@ -76,6 +76,19 @@ _RING_STAGES = 3  # bf16 K/V tiles in flight (kStages)
 _RING_ALIGN = 1024  # slack to align the ring for the 128-byte swizzle
 _WS_TILE = re.compile(r"^constexpr int (kKeys|kConsumers|kStages) = (\d+);",
                       re.MULTILINE)
+# csrc/attention_bwd.cu: the bf16 backward kernels, persistent walks in the
+# shape of attention_ws.cu's (`bwd_tile`); bwd_dkdv's stages also hold the
+# lse and delta of their 64 queries
+_BWD = ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv")
+_BWD_TILE = re.compile(
+    r"^constexpr int (kDqConsumers|kDkdvConsumers|kStages) = (\d+);",
+    re.MULTILINE)
+# TMA's limits on a tensor map's global memory (cuTensorMapEncodeTiled):
+# a 16-byte aligned base, pitches that are multiples of 16 bytes and below
+# 2^40, and dimensions of at most 2^32
+_TMA_ALIGN = 16
+_TMA_MAX_PITCH = 1 << 40
+_TMA_MAX_DIM = 1 << 32
 H100_SMS = 132  # SMs of an H100 SXM, the default of launch_geometry's sms
 
 
@@ -114,10 +127,11 @@ def mha_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class Launch:
     """How one kernel call is cut: the CUDA grid, the threads of a block
     (two per query row and head, and a producer warpgroup in
-    `csrc/attention_ws.cu`), the query rows of a block's tile (of a work
-    item for the persistent walk), the bytes of dynamic shared memory and,
-    for the kernels of `csrc/attention_pipelined.cu` and
-    `csrc/attention_ws.cu`, the CTAs per SM the design assumes
+    `csrc/attention_ws.cu` and the bf16 `csrc/attention_bwd.cu`), the query
+    rows (keys in bwd_dkdv) of a block's tile (of a work item for the
+    persistent walks), the bytes of dynamic shared memory and, for the
+    kernels of `csrc/attention_pipelined.cu`, `csrc/attention_ws.cu` and
+    the bf16 `csrc/attention_bwd.cu`, the CTAs per SM the design assumes
     (`pipelined_occupancy` reads what the card makes of it)."""
     grid: tuple[int, int, int]
     threads: int
@@ -150,6 +164,56 @@ def ws_tile() -> tuple[int, int, int]:
     """`parse_ws_tile` of `csrc/attention_ws.cu`, read once: the source is
     the one place the tile shape is written."""
     return parse_ws_tile((_cuda.CSRC / "attention_ws.cu").read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_constants() -> dict:
+    return {name: int(value) for name, value in _BWD_TILE.findall(
+        (_cuda.CSRC / "attention_bwd.cu").read_text())}
+
+
+def bwd_tile(kind: str) -> tuple[int, int]:
+    """(consumer warpgroups, ring stages) of the bf16 backward kernel `kind`
+    (`mha_packed_bwd_dq` or `mha_packed_bwd_dkdv`): the kDqConsumers or
+    kDkdvConsumers, and kStages, constexprs of `csrc/attention_bwd.cu`,
+    read once."""
+    found = _bwd_constants()
+    if sorted(found) != ["kDkdvConsumers", "kDqConsumers", "kStages"]:
+        raise ValueError("no kDqConsumers, kDkdvConsumers and kStages "
+                         "constexprs in csrc/attention_bwd.cu")
+    consumers = found["kDkdvConsumers" if kind == "mha_packed_bwd_dkdv"
+                      else "kDqConsumers"]
+    return consumers, found["kStages"]
+
+
+def _bwd(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
+         sms: int):
+    """(grid, rows, threads, smem, ctas_per_sm) of the backward kernels.
+    bf16: the persistent walk of `csrc/attention_bwd.cu`, one CTA per SM
+    of a producer and 64-row consumer warpgroups (`bwd_tile(kind)`) over
+    (batch element, head, row block) items, rows being query rows (bwd_dq)
+    or keys (bwd_dkdv); its dynamic shared memory is the alignment slack,
+    the stages of two (64, D) tiles (and in bwd_dkdv each stage's 64 lse
+    and delta values), then a full and an empty mbarrier per stage. f32: one
+    4-warp block per (64-row tile, head, batch element), static shared
+    memory only."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kind} is compiled for head widths "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if itemsize != 2:
+        return (cdiv(S, _TILE_ROWS), NH, B), _TILE_ROWS, 128, 0, None
+    if sms < 1:
+        raise ValueError(f"sms must be at least 1, got {sms}")
+    consumers, stages = bwd_tile(kind)
+    rows = _TILE_ROWS * consumers
+    stats = 2 * _TILE_ROWS * 4 if kind == "mha_packed_bwd_dkdv" else 0
+    smem = (_RING_ALIGN + stages * (2 * _TILE_ROWS * D * itemsize + stats)
+            + 2 * stages * 8)
+    items = B * NH * cdiv(S, rows)
+    if items > _MAX_GRID_X:
+        raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
+                         f"{items} work items, beyond a 32-bit count")
+    return (min(items, sms), 1, 1), rows, 128 * (consumers + 1), smem, 1
 
 
 def _static_smem(D: int, itemsize: int) -> int:
@@ -208,18 +272,18 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
                     tile: tuple[int, int, int] | None = None) -> Launch:
     """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
     card's SM count, which sizes the persistent grid of `mha_packed`,
-    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock` and
-    `mha_batched_heads`; `tile` is the shape of a variant of
-    `csrc/attention_ws.cu` (`parse_ws_tile`), the source's own by default. Query blocks are counted with `cdiv`, so the
+    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
+    `mha_batched_heads` and the bf16 backward kernels; `tile` is the shape
+    of a variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the source's
+    own by default. Query blocks are counted with `cdiv`, so the
     last, ragged one is launched too. `mha_pairs` takes an even NH: the JAX
     function sends an odd one to `mha_packed`."""
     if kind == "mha_pairs" and NH % _PAIR_HEADS:
         raise ValueError(f"mha_pairs takes an even number of heads, got {NH}")
     rows, smem, ctas, threads = _TILE_ROWS, 0, None, None
-    if kind == "mha_packed_bwd_dq":
-        grid = (cdiv(S, rows), NH, B)  # 64-row query tiles
-    elif kind == "mha_packed_bwd_dkdv":
-        grid = (cdiv(S, rows), NH, B)  # 64-key tiles: rows are keys here
+    if kind in _BWD:
+        grid, rows, threads, smem, ctas = _bwd(kind, B, S, NH, D, itemsize,
+                                               sms)
     elif kind in _PIPELINED:
         _check_block_q(block_q)
         grid, rows, threads, smem, ctas = _pipelined(kind, B, S, NH, D,
@@ -323,6 +387,20 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _occupancy(source: str, kind: str, itemsize: int, D: int) -> int:
+    """The CTAs of `kind`'s kernel in `csrc/<source>.cu` that fit on one SM
+    of the current card at `launch_geometry`'s threads and shared memory,
+    as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them."""
+    geo = launch_geometry(kind, 1, _TILE_KEYS, _PAIR_HEADS, D, itemsize)
+    suffix = "bf16" if itemsize == 2 else "f32"
+    fn = getattr(_cuda.load(source), f"{kind}_occupancy_{suffix}")
+    blocks = fn(D, geo.threads, geo.smem)
+    if blocks < 0:
+        raise RuntimeError(f"{kind}_occupancy_{suffix}: cudaError_t "
+                           f"{-blocks}")
+    return blocks
+
+
 def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
     """The CTAs of `kind`'s kernel (a kind of `_PIPELINED`: `mha_packed`,
     `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
@@ -332,15 +410,16 @@ def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
     Builds the kernels if needed; raises on a CUDA error."""
     if kind not in _PIPELINED:
         raise ValueError(f"no pipelined attention kernel named {kind!r}")
-    geo = launch_geometry(kind, 1, _TILE_KEYS, _PAIR_HEADS, D, itemsize)
-    suffix = "bf16" if itemsize == 2 else "f32"
-    fn = getattr(_cuda.load(_source(kind, itemsize)),
-                 f"{kind}_occupancy_{suffix}")
-    blocks = fn(D, geo.threads, geo.smem)
-    if blocks < 0:
-        raise RuntimeError(f"{kind}_occupancy_{suffix}: cudaError_t "
-                           f"{-blocks}")
-    return blocks
+    return _occupancy(_source(kind, itemsize), kind, itemsize, D)
+
+
+def bwd_occupancy(kind: str, D: int) -> int:
+    """`pipelined_occupancy` of a bf16 backward kernel (`mha_packed_bwd_dq`
+    or `mha_packed_bwd_dkdv`, the persistent walks of
+    `csrc/attention_bwd.cu`) at head width D."""
+    if kind not in _BWD:
+        raise ValueError(f"no backward attention kernel named {kind!r}")
+    return _occupancy("attention_bwd", kind, 2, D)
 
 
 def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -553,14 +632,37 @@ def _check_bwd(what: str, q, k, v, num_heads: int, acts: dict,
         _check_bwd_kernel(q, k, v, num_heads, acts, stats)
 
 
+def _check_tma(name: str, ptr: int, shape, strides, itemsize: int) -> None:
+    """What a TMA tensor map over a (B, S, H) tensor takes (hopper.cuh's
+    tensor_map: dimensions (H, S, B), pitches of a row and of a batch
+    element): a 16-byte aligned base address, pitches that are multiples of
+    16 bytes and below 2^40 bytes, dimensions of at most 2^32."""
+    if ptr % _TMA_ALIGN:
+        raise ValueError(f"{name} must be {_TMA_ALIGN}-byte aligned for "
+                         f"TMA, its address is {ptr:#x}")
+    for pitch in (strides[1] * itemsize, strides[0] * itemsize):
+        if pitch % _TMA_ALIGN or pitch >= _TMA_MAX_PITCH:
+            raise ValueError(f"{name}: TMA takes pitches that are multiples "
+                             f"of {_TMA_ALIGN} bytes below 2^40, got "
+                             f"{pitch} bytes")
+    if max(shape) > _TMA_MAX_DIM:
+        raise ValueError(f"{name}: TMA takes dimensions of at most 2^32, "
+                         f"got {tuple(shape)}")
+
+
 def _check_bwd_kernel(q, k, v, num_heads: int, acts: dict,
                       stats: dict) -> None:
     """What the backward kernels take beyond `_check_bwd`: D in
     KERNEL_HEAD_DIMS, contiguous tensors, 16-byte aligned activations and
-    4-byte aligned lse and delta."""
+    4-byte aligned lse and delta; in bf16, what TMA takes of the tensors
+    its maps read (`_check_tma`: q, k, v and g)."""
     _check_kernel(q, k, v, num_heads)
     _check_layout(16, **acts)
     _check_layout(4, **stats)
+    if q.dtype == torch.bfloat16:
+        for name, x in {"q": q, "k": k, "v": v, **acts}.items():
+            _check_tma(name, x.data_ptr(), x.shape, x.stride(),
+                       x.element_size())
 
 
 def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -570,9 +672,12 @@ def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 row sums sum_d g o that `mha_packed_bwd_dkdv` reads. o and lse are
     `mha_packed_lse`'s, g the output's gradient (all packed (B, S, H)).
 
-    CUDA tensors go to `csrc/attention_bwd.cu:dq_kernel`, one block per
-    64-row query tile, head and batch element; CPU tensors to the plain
-    version. Each kernel launch adds one to `mha_packed_bwd_dq.launches`."""
+    CUDA tensors go to `csrc/attention_bwd.cu`: bf16 `dq_ws_kernel`, the
+    persistent walk whose producer warpgroup streams K and V tiles by TMA
+    to consumer warpgroups of 64 query rows (wgmma); f32 `dq_kernel_f32`,
+    one block per 64-row query tile, head and batch element. CPU tensors
+    go to the plain version. Each kernel launch adds one to
+    `mha_packed_bwd_dq.launches`."""
     _check_bwd("mha_packed_bwd_dq", q, k, v, num_heads, {"o": o, "g": g},
                {"lse": lse})
     if q.device.type == "cpu":
@@ -580,13 +685,13 @@ def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H = q.shape
     D = H // num_heads
     geo = launch_geometry("mha_packed_bwd_dq", B, S, num_heads, D,
-                          q.element_size())
+                          q.element_size(), sms=sm_count(q.device))
     dq = torch.empty_like(q)
     delta = torch.empty(B, num_heads, S, dtype=torch.float32,
                         device=q.device)
     _run("attention_bwd", f"mha_packed_bwd_dq_{_suffix(q)}",
          (q, k, v, o, lse, g, dq, delta),
-         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
     mha_packed_bwd_dq.launches += 1
     return dq, delta
 
@@ -597,9 +702,12 @@ def mha_packed_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The second backward kernel: returns (dk, dv) from the forward's lse
     and `mha_packed_bwd_dq`'s delta.
 
-    CUDA tensors go to `csrc/attention_bwd.cu:dkdv_kernel`, one block per
-    64-key tile, head and batch element; CPU tensors to the plain version.
-    Each kernel launch adds one to `mha_packed_bwd_dkdv.launches`."""
+    CUDA tensors go to `csrc/attention_bwd.cu`: bf16 `dkdv_ws_kernel`, the
+    persistent walk whose producer streams Q and g tiles by TMA (and their
+    lse and delta) to consumer warpgroups of 64 keys (wgmma); f32
+    `dkdv_kernel_f32`, one block per 64-key tile, head and batch element.
+    CPU tensors go to the plain version. Each kernel launch adds one to
+    `mha_packed_bwd_dkdv.launches`."""
     _check_bwd("mha_packed_bwd_dkdv", q, k, v, num_heads, {"g": g},
                {"lse": lse, "delta": delta})
     if q.device.type == "cpu":
@@ -608,11 +716,11 @@ def mha_packed_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H = q.shape
     D = H // num_heads
     geo = launch_geometry("mha_packed_bwd_dkdv", B, S, num_heads, D,
-                          q.element_size())
+                          q.element_size(), sms=sm_count(q.device))
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _run("attention_bwd", f"mha_packed_bwd_dkdv_{_suffix(q)}",
          (q, k, v, g, lse, delta, dk, dv),
-         (S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
     mha_packed_bwd_dkdv.launches += 1
     return dk, dv
 

@@ -57,7 +57,7 @@ from ..models import ast as ast_mod
 from ..models import convert
 from ..ops import fbank as F
 from ..parallel import mesh as pmesh
-from ..utils import fsio
+from ..utils import fsio, prng
 from . import losses, metrics as metrics_mod, optim, steps
 
 SAMPLING_RATE = 16000
@@ -448,10 +448,12 @@ def init_model(cfg: TrainFoldConfig):
     """(params, model_cfg): pretrained load + fresh 2-class head (the
     reference's ignore_mismatched_sizes + init_weights dance), with optional
     short-sequence positional-embedding adaptation; or, without a
-    pretrained dir, a random init. f32 parameters on the CPU, deterministic
-    in cfg.seed (a numpy generator: the JAX PRNGKey stream is not
-    reproduced), so every fold starts from the identical tree."""
-    rng = np.random.default_rng(cfg.seed)
+    pretrained dir, a random init. f32 parameters on the CPU, drawn from
+    `utils.prng.key(cfg.seed)`, the JAX trainer's `PRNGKey(cfg.seed)`: the
+    fresh head (`reinit_head`) and the random init (`init_params`) are the
+    JAX `init_model`'s bit for bit, and every fold starts from the
+    identical tree."""
+    rng = prng.key(cfg.seed)
     if cfg.pretrained_model_dir:
         if os.path.exists(os.path.join(cfg.pretrained_model_dir,
                                        "model_int8.safetensors")):
