@@ -86,6 +86,32 @@ def test_port_imports_no_jax():
     assert proc.stdout.startswith("ok")
 
 
+# the scripts that run on the card's machine, which has no JAX: every one
+# under tools/ but the two that hold the port to the JAX package on the CPU
+CPU_ONLY_TOOLS = ("drift_jax_vs_port.py", "first_update_probe.py")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py"] + sorted(
+    f"tools/{f}" for f in os.listdir(os.path.join(REPO, "tools"))
+    if f.endswith(".py") and f not in CPU_ONLY_TOOLS))
+def test_card_scripts_import_no_jax(script):
+    """No import statement of a card script, at any depth, names jax,
+    optax, sklearn or the JAX package."""
+    import ast
+
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names if n.split(".")[0] in (
+        "jax", "optax", "sklearn", "zenker_audio_detection_tpu"))
+    assert not bad, (script, bad)
+
+
 def _tiny_spec():
     cfg = ast_mod.ASTConfig(hidden_size=16, num_hidden_layers=1,
                             num_attention_heads=2, intermediate_size=32,

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/smoke_phase.py [--phases train_alone train loop serving
-                                   audio parallel workflow mesh]
+    python3 tools/smoke_phase.py [--phases engine train_alone train loop
+                                   serving audio parallel workflow mesh]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
 chip_smoke.py's main would but without the phases before them:
-`train_alone` (mha_packed_trainable alone at (16, 1214, 768)), `train`
-(the full-width training step of both routes, which logs its ms per step),
+`engine` (phase 4: the full-width engine in both modes, its calibrated
+gate, against the "torch" attention), `train_alone`
+(mha_packed_trainable alone at (16, 1214, 768)), `train` (the
+full-width training step of both routes, which logs its ms per step),
 `loop` (the training loop, which logs its ms per step) and `serving`
 (phase 8: int8 inference, streaming and the serving CLIs, which logs
 windows/s, emit latency and mha_packed at the streaming buckets), `audio`
@@ -34,8 +36,8 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("train_alone", "train", "loop", "serving", "audio", "parallel",
-          "workflow", "mesh")
+PHASES = ("engine", "train_alone", "train", "loop", "serving", "audio",
+          "parallel", "workflow", "mesh")
 
 
 def main() -> int:
@@ -62,7 +64,10 @@ def main() -> int:
     loop_ms = float("nan")
     for phase in args.phases:
         t0 = time.perf_counter()
-        if phase == "train_alone":
+        if phase == "engine":
+            chip_smoke.phase_engine(A, C, ast_mod, torch,
+                                    torch.cuda.get_device_name(0))
+        elif phase == "train_alone":
             chip_smoke.phase_train_alone(A, torch)
         elif phase == "train":
             chip_smoke.phase_train(A, ast_mod, torch)

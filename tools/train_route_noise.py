@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """How far apart equally precise training routes land, on one NVIDIA GPU.
 
-    python3 tools/train_route_noise.py [--seeds 7 17 27 37]
+    python3 tools/train_route_noise.py [--seeds 7 17 27 37 47]
         [--routes torch torch_flash torch_reversed kernel] [--ws-variant NAME]
 
-chip_smoke.py's training phase holds the "kernel" route's losses to the
-"torch" route's. This tool measures how far apart routes that compute the
+chip_smoke.py's training phase holds the "kernel" route's losses and
+gradients to the "torch" route's at the same parameters. This tool measures how far apart routes that compute the
 same function with other roundings land on the same data: for each seed s
-(weights from numpy seed s, the batch from seed s + 1; chip_smoke.py uses
-7), at full width (ASTConfig(), batch 16, bf16, remat, stage1_loss(2.0,
+(weights from numpy seed s, the batch from seed s + 1; chip_smoke.py's
+seeds), at full width (ASTConfig(), batch 16, bf16, remat, stage1_loss(2.0,
 0.07), chip_smoke.py's optimizer), five steps of each route, from the same
 weights on the same batch:
 
@@ -25,9 +25,14 @@ Prints per seed and route the loss before each step and after the last,
 each loss's distance from the torch route's, the relative norm of the
 difference of the first-step gradients and the share of gradient elements
 whose sign differs from the torch route's (Adam's first step moves every
-parameter by about the learning rate in the direction of that sign). Prints
-the card's name and power limit first and one JSON line last. Run from a
-checkout's root; it imports the package found there.
+parameter by about the learning rate in the direction of that sign). Beside
+these trajectory readings, the same-point readings of chip_smoke.py's
+phase 6: the route's own five updates, and at each parameter point it
+visits (before each update, after the last) both its loss and gradients and
+the torch route's at those parameters, their loss difference and the
+relative norm of their gradients' difference. Prints the card's name and
+power limit first and one JSON line last. Run from a checkout's root; it
+imports the package and chip_smoke.py found there.
 """
 
 from __future__ import annotations
@@ -38,8 +43,6 @@ import math
 import subprocess
 import sys
 from pathlib import Path
-
-import numpy as np
 
 sys.path.insert(0, str(Path.cwd()))
 ROUTES = ("torch", "torch_flash", "torch_reversed", "kernel")
@@ -73,13 +76,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("train_route_noise: CUDA is not available", file=sys.stderr)
         return 1
+    import chip_smoke
     from zenker_audio_detection_tpu_torch.models import ast as ast_mod
     from zenker_audio_detection_tpu_torch.ops import attention as A
     from zenker_audio_detection_tpu_torch.train import losses, optim, steps
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--seeds", type=int, nargs="+", default=[7, 17, 27,
-                                                                 37])
+    parser.add_argument("--seeds", type=int, nargs="+",
+                        default=[7, 17, 27, 37, 47])
     parser.add_argument("--routes", nargs="+", choices=ROUTES,
                         default=list(ROUTES))
     parser.add_argument("--ws-variant")
@@ -96,40 +100,55 @@ def main() -> int:
     cfg = ast_mod.ASTConfig()
     tx = optim.make_optimizer(**OPT)
 
-    def run(route, params0, feats, labels):
-        """STEPS steps: the loss before each and after the last, and the
-        first step's gradients."""
-        A.mha_packed_reference = flash_order if route == "torch_flash" \
-            else plain
+    def loss_fn(route):
         impl = "kernel" if route == "kernel" else "torch"
-        if route == "torch_reversed":
-            feats, labels = feats.flip(0), labels.flip(0)
 
-        def loss_fn(p, f, y):
+        def fn(p, f, y):
             logits = ast_mod.forward(p, f, cfg, dtype=torch.bfloat16,
                                      remat=True, attention_impl=impl)
             return losses.stage1_loss(logits, y, 2.0, 0.07), logits
+        return fn
 
+    def vg(route):
+        """(params, feats, labels) -> (loss, grads) of `route`."""
+        fn = loss_fn(route)
+
+        def run_vg(p, f, y):
+            A.mha_packed_reference = flash_order if route == "torch_flash" \
+                else plain
+            if route == "torch_reversed":
+                f, y = f.flip(0), y.flip(0)
+            try:
+                (lv, _), g = steps.value_and_grad(fn, p, f, y)
+            finally:
+                A.mha_packed_reference = plain
+            return lv, g
+        return run_vg
+
+    def run(route, params0, feats, labels):
+        """STEPS steps: the loss before each and after the last, and the
+        first step's gradients."""
+        step_vg = vg(route)
         p, o, out, first = params0, tx.init(params0), [], None
         for _ in range(STEPS):
-            (lv, _), g = steps.value_and_grad(loss_fn, p, feats, labels)
+            lv, g = step_vg(p, feats, labels)
             u, o = tx.update(g, o, p)
             p = optim.apply_updates(p, u)
             out.append(float(lv))
             first = g if first is None else first
         with torch.no_grad():
-            out.append(float(loss_fn(p, feats, labels)[0]))
-        A.mha_packed_reference = plain
+            A.mha_packed_reference = flash_order if route == "torch_flash" \
+                else plain
+            f, y = ((feats.flip(0), labels.flip(0))
+                    if route == "torch_reversed" else (feats, labels))
+            out.append(float(loss_fn(route)(p, f, y)[0]))
+            A.mha_packed_reference = plain
         return out, first
 
     results = {}
     for seed in args.seeds:
-        rng = np.random.default_rng(seed + 1)
-        feats = torch.from_numpy(rng.standard_normal(
-            (16, cfg.max_length, cfg.num_mel_bins)).astype(np.float32)).cuda()
-        labels = torch.from_numpy(rng.permutation(np.arange(16) % 2)).cuda()
-        params0 = optim.tree_map(lambda t: t.cuda(), ast_mod.init_params(
-            np.random.default_rng(seed), cfg))
+        params0, feats, labels = chip_smoke.route_inputs(ast_mod, cfg, seed,
+                                                         16, "cuda")
         base, g0 = run("torch", params0, feats, labels)
         leaves0 = [g for _, g in optim.tree_items(g0)]
         norm0 = math.sqrt(sum(float((g.float() ** 2).sum()) for g in leaves0))
@@ -143,15 +162,24 @@ def main() -> int:
             flips = sum(int((torch.sign(a) != torch.sign(b)).sum())
                         for a, b in zip(leaves, leaves0)) / total
             diffs = [abs(a - b) for a, b in zip(ls, base)]
+            same = ([] if route == "torch" else chip_smoke.same_point_readings(
+                {"kernel": vg(route), "torch": vg("torch")}, params0, feats,
+                labels, STEPS))
             results.setdefault(str(seed), {})[route] = {
                 "losses": ls, "diffs": diffs, "first_update_diff": diffs[1],
                 "other_max_diff": max(diffs[:1] + diffs[2:]),
-                "grad_rel": rel, "sign_flips": flips}
+                "grad_rel": rel, "sign_flips": flips,
+                "same_point_loss_diffs": [r["loss_diff"] for r in same],
+                "same_point_grad_rels": [r["grad_rel"] for r in same]}
+            sp_loss = [float(f"{r['loss_diff']:.3g}") for r in same]
+            sp_grad = [float(f"{r['grad_rel']:.3g}") for r in same]
             print(f"[noise] seed {seed} {route}: losses "
                   f"{[round(x, 6) for x in ls]}; from torch: right after the "
                   f"first update {diffs[1]:.3g}, elsewhere at most "
                   f"{max(diffs[:1] + diffs[2:]):.3g}; first-step gradients "
-                  f"{rel:.3g} apart, {100 * flips:.3f} % of signs differ",
+                  f"{rel:.3g} apart, {100 * flips:.3f} % of signs differ; at "
+                  f"the same points (before each update, after the last): "
+                  f"loss differences {sp_loss}, gradients {sp_grad} apart",
                   flush=True)
         del params0, g0, leaves0
         torch.cuda.empty_cache()

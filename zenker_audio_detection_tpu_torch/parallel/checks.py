@@ -21,17 +21,20 @@ from . import mesh as pmesh
 
 def seeded_spec(seed: int, config=None, mean: float | None = None,
                 std: float | None = None, labels=("Idle", "Swallow"),
-                head_bias_shift: float = 0.0):
+                head: dict | None = None):
     """A stage of random f32 weights from `init_params(default_rng(seed))`
     (the full-width `ASTConfig()` by default), the dataset's fallback
-    normalization unless given."""
+    normalization unless given; `head` ({"kernel", "bias"} numpy arrays)
+    replaces the head's dense layer."""
     from ..infer import cascade as C
     from ..models import ast as ast_mod
     from ..ops import fbank as F
 
     config = config or ast_mod.ASTConfig()
     params = ast_mod.init_params(np.random.default_rng(seed), config)
-    params["head"]["dense"]["bias"][1] += head_bias_shift
+    if head is not None:
+        params["head"]["dense"] = {k: torch.from_numpy(np.array(v))
+                                   for k, v in head.items()}
     return C.StageSpec(params, config,
                        F.DATASET_FALLBACK_MEAN if mean is None else mean,
                        F.DATASET_FALLBACK_STD if std is None else std,
