@@ -5,7 +5,8 @@ output schema (outputs/<pid>_2stage.json) and the same gating semantics,
 served by the PyTorch engine. Differences: `--attention-impl` takes
 `kernel` (the CUDA kernel, default) or `torch` (its plain version),
 `--device` (default `cuda`) says where the engine runs, and `--trace-dir`
-writes a `torch.profiler` Chrome trace. `--num-devices N` > 1 runs the
+writes a `torch.profiler` Chrome trace with the engine's `cascade.*` and
+the model's `ast.attention` spans. `--num-devices N` > 1 runs the
 CLI on N ranks of a process group (parallel/launch.py starts them, one
 per card, or joins torchrun's group): the models are replicated and each
 window chunk is sharded over a 1-D mesh, or a ("dcn", "data") one with
@@ -87,7 +88,9 @@ def build_arg_parser():
                          "recalibrate thresholds on validation")
     ap.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler Chrome trace of the "
-                         "inference to this directory")
+                         "inference to this directory; it holds the "
+                         "engine's cascade.* spans and an ast.attention "
+                         "span around each attention call")
     return ap
 
 

@@ -10,6 +10,16 @@ src/test_long_audio_windows_2stage_cache.py):
   Stage 2 on the gated windows ("gated") or on every window ("all"), in
   fixed-size chunks whose results are fetched only after all are queued.
 
+Under a profiler each recording is one `cascade.recording` span
+(`infer_file`) holding flat, non-overlapping siblings in this order:
+`cascade.frontend` (the padding, the upload, the file-level log-mel or the
+samples buffer, the cache lookup), `cascade.stage1` (its starts to the
+device and its chunks queued), `cascade.fetch` (its probabilities to the
+host, the mesh's gather included), `cascade.gate` (gated mode: the gate
+and the stage-2 selection), `cascade.stage2` and `cascade.fetch` (when a
+window is left to run), `cascade.summary` (`gate_and_summarize`).
+`run_patient` adds one `cascade.summary` for the patient's JSON.
+
 Numerical contract: per-window probabilities equal the JAX engine's at the
 stated tolerances; the gating/summary math on top is replicated exactly
 (including the reference quirk that summary swallow counts use raw argmax
@@ -31,6 +41,7 @@ import torch.nn.functional as nnf
 from ..models import ast as ast_mod
 from ..ops import fbank as F
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 
 SAMPLING_RATE = 16000
 
@@ -236,13 +247,33 @@ class TwoStageEngine:
         `audio` may be float32 or int16 PCM; int16 is transferred as-is
         (half the host->device traffic) and scaled to float on the device.
         """
+        with span("cascade.frontend"):
+            kind, device_buf, stage_starts = self._frontend(audio, path)
+        W = len(stage_starts)
+
+        p1 = self._run_stage(1, kind, device_buf, stage_starts)
+        if self.config.stage2_mode == "all":
+            p2 = self._run_stage(2, kind, device_buf, stage_starts)
+        else:
+            with span("cascade.gate"):
+                p2 = np.zeros((W, 2), np.float64)
+                gated = self._gate_indices(p1)
+                gated_starts = stage_starts[gated]
+            if len(gated):
+                p2[gated] = self._run_stage(2, kind, device_buf,
+                                            gated_starts)
+        return p1, p2
+
+    def _frontend(self, audio, path):
+        """(kind, device buffer, each window's start in it) of one
+        recording: file-level log-mel frames ("frames", via the cache when
+        enabled) when the hop lies on the frame grid, else the zero-padded
+        samples ("samples")."""
         audio = np.asarray(audio)
         if audio.dtype != np.int16:
             audio = audio.astype(np.float32)
         starts = window_starts(len(audio), self.config.window_sec,
                                self.config.hop_sec)
-        W = len(starts)
-
         if self._frame_reuse and len(audio) >= self._win:
             # pow2-bucketed frame count, as the JAX engine pads it
             needed = int(starts[-1]) + self._win
@@ -251,31 +282,15 @@ class TwoStageEngine:
             padded_len = (n_frames_padded - 1) * F.HOP_LENGTH + F.FRAME_LENGTH
             device_buf = self._cached_or_computed_frames(
                 audio, path, padded_len, n_true_frames, n_frames_padded)
-            kind = "frames"
-            stage_starts = starts // F.HOP_LENGTH
-        else:
-            # zero-pad so every gathered window is in bounds; pow2 samples
-            padded_len = int(starts[-1]) + self._win
-            buf = np.zeros(_next_pow2(padded_len, floor=self._win),
-                           audio.dtype)
-            # audio may exceed the bucketed buffer (trailing samples past
-            # starts[-1]+win are never windowed)
-            m = min(len(audio), len(buf))
-            buf[:m] = audio[:m]
-            device_buf = torch.from_numpy(buf).to(self.device)
-            kind = "samples"
-            stage_starts = starts
-
-        p1 = self._run_stage(1, kind, device_buf, stage_starts)
-        if self.config.stage2_mode == "all":
-            p2 = self._run_stage(2, kind, device_buf, stage_starts)
-        else:
-            p2 = np.zeros((W, 2), np.float64)
-            gated = self._gate_indices(p1)
-            if len(gated):
-                p2[gated] = self._run_stage(2, kind, device_buf,
-                                            stage_starts[gated])
-        return p1, p2
+            return "frames", device_buf, starts // F.HOP_LENGTH
+        # zero-pad so every gathered window is in bounds; pow2 samples
+        padded_len = int(starts[-1]) + self._win
+        buf = np.zeros(_next_pow2(padded_len, floor=self._win), audio.dtype)
+        # audio may exceed the bucketed buffer (trailing samples past
+        # starts[-1]+win are never windowed)
+        m = min(len(audio), len(buf))
+        buf[:m] = audio[:m]
+        return "samples", torch.from_numpy(buf).to(self.device), starts
 
     def _cached_or_computed_frames(self, audio, path, padded_len,
                                    n_true_frames, n_frames_padded):
@@ -320,7 +335,20 @@ class TwoStageEngine:
         discarded), as in the JAX engine. With a mesh each rank runs its
         contiguous share of every chunk (the buckets' floor is the mesh
         size, so each divides), and one gather at the end puts the rows
-        back in window order."""
+        back in window order. The queueing is the `cascade.stage<n>` span,
+        the fetch `cascade.fetch`."""
+        with span(f"cascade.stage{stage}"):
+            pending = self._queue_stage(stage, kind, device_buf, starts)
+        with span("cascade.fetch"):
+            if self.mesh is not None:
+                pending = self._gather_chunks(pending)
+            return np.concatenate(
+                [p[:n].cpu().numpy().astype(np.float64) for n, p in pending])
+
+    def _queue_stage(self, stage: int, kind: str, device_buf: torch.Tensor,
+                     starts: np.ndarray) -> list:
+        """(valid rows, probabilities on the device) of each chunk of one
+        stage, all queued (this rank's share of each with a mesh)."""
         C = self.config.batch_size
         W = len(starts)
         floor = 8
@@ -349,10 +377,7 @@ class TwoStageEngine:
             probs = self._stage_probs(stage, kind, device_buf, chunk)
             pending.append((n, probs))
             j += bucket
-        if self.mesh is not None:
-            pending = self._gather_chunks(pending)
-        return np.concatenate(
-            [p[:n].cpu().numpy().astype(np.float64) for n, p in pending])
+        return pending
 
     def _gather_chunks(self, pending):
         """Every rank's share of every chunk -> the chunks' whole rows, in
@@ -402,17 +427,19 @@ class TwoStageEngine:
         return summary, s1_preds, stage2_results, aligned_classes
 
     def infer_file(self, audio: np.ndarray, path: str = "") -> dict:
-        s1_probs, s2_probs = self.window_probs(audio, path or None)
-        summary, s1_preds, stage2_results, aligned = self.gate_and_summarize(
-            s1_probs, s2_probs)
-        return {
-            "path": path,
-            **summary,
-            "_s1_preds": s1_preds,
-            "_stage2_aligned_classes": aligned,
-            "_s1_probs": s1_probs,
-            "_s2_probs": s2_probs,
-        }
+        with span("cascade.recording"):
+            s1_probs, s2_probs = self.window_probs(audio, path or None)
+            with span("cascade.summary"):
+                summary, s1_preds, _, aligned = self.gate_and_summarize(
+                    s1_probs, s2_probs)
+                return {
+                    "path": path,
+                    **summary,
+                    "_s1_preds": s1_preds,
+                    "_stage2_aligned_classes": aligned,
+                    "_s1_probs": s1_probs,
+                    "_s2_probs": s2_probs,
+                }
 
     def run_patient(self, files: Sequence[str], audios: Sequence[np.ndarray],
                     stage1_model_root: str = "", stage2_model_root: str = "") -> dict:
@@ -425,8 +452,9 @@ class TwoStageEngine:
             per_file[f"file_{idx}"] = {
                 k: v for k, v in res.items() if not k.startswith("_")
             }
-        return build_patient_output(self.config, files, per_file,
-                                    stage1_model_root, stage2_model_root)
+        with span("cascade.summary"):
+            return build_patient_output(self.config, files, per_file,
+                                        stage1_model_root, stage2_model_root)
 
 
 def build_patient_output(cfg: CascadeConfig, files: Sequence[str],

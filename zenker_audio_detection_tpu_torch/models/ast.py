@@ -31,7 +31,8 @@ Numerics follow the JAX package:
 Attention is `ops.attention.mha_packed_trainable` ("kernel", the
 counterpart of the JAX "pallas" route: Hopper kernels forward and
 backward, `mha_packed` when no gradient is taken) or the plain version
-("torch", the counterpart of "xla").
+("torch", the counterpart of "xla"). Under a profiler each attention call
+is an `ast.attention` span (`utils.profiling.span`).
 
 int8 inference is the JAX package's: `quantize_params` turns the encoder's
 six dense kernels into per-output-channel int8 leaves, and `_dense`
@@ -56,6 +57,7 @@ import torch.nn.functional as nnf
 from ..ops import attention as attn_ops
 from ..utils import prng
 from ..utils.precision import full_f32
+from ..utils.profiling import span
 
 Params = dict[str, Any]
 ATTENTION_IMPLS = ("kernel", "torch")
@@ -364,12 +366,13 @@ def _attention(x, lp, config: ASTConfig, impl: str):
     q = _dense(x, lp["q"])
     k = _dense(x, lp["k"])
     v = _dense(x, lp["v"])
-    if impl == "kernel":
-        # Hopper kernels forward and backward, as the JAX "pallas" route
-        # calls its custom VJP
-        ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
-    else:
-        ctx = attn_ops.mha_packed_reference(q, k, v, nh)
+    with span("ast.attention"):
+        if impl == "kernel":
+            # Hopper kernels forward and backward, as the JAX "pallas" route
+            # calls its custom VJP
+            ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
+        else:
+            ctx = attn_ops.mha_packed_reference(q, k, v, nh)
     return _dense(ctx, lp["attn_out"])
 
 

@@ -26,6 +26,12 @@ mean of per-rank losses; each rank then back-propagates its own rows' share
 of d(loss)/d(logits) and the parameter gradients are summed over the mesh.
 A batch whose rows do not divide over the mesh (a tail batch) runs whole
 on every rank, as JAX runs it replicated.
+
+Under a profiler (`utils.profiling.span`) a step is a `train.step` span
+holding `train.forward` (the loss function's call; on a mesh also the
+logits' gather and the global loss), `train.backward` (`autograd.grad`, the
+mesh's gradient sum included) and `train.optimizer` (`tx.update` and
+`apply_updates`, so the clip's host read of the gradient norm falls there).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from ..models import ast as ast_mod
 from ..parallel import mesh as pmesh
 from ..utils.precision import full_f32
+from ..utils.profiling import span
 from . import optim
 
 
@@ -49,8 +56,10 @@ def value_and_grad(loss_fn: Callable, params, *args):
     leaves = [leaf.detach().requires_grad_()
               for _, leaf in optim.tree_items(params)]
     with torch.enable_grad():
-        loss, aux = loss_fn(optim.tree_from_items(zip(paths, leaves)), *args)
-        with full_f32():
+        with span("train.forward"):
+            loss, aux = loss_fn(optim.tree_from_items(zip(paths, leaves)),
+                                *args)
+        with span("train.backward"), full_f32():
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(leaf) if g is None else g
              for leaf, g in zip(leaves, grads)]
@@ -70,20 +79,24 @@ def sharded_value_and_grad(logits_fn: Callable, loss: Callable, params,
     paths = [path for path, _ in optim.tree_items(params)]
     leaves = [leaf.detach().requires_grad_()
               for _, leaf in optim.tree_items(params)]
-    with torch.enable_grad():
-        local = logits_fn(optim.tree_from_items(zip(paths, leaves)),
-                          *local_inputs)
-    glob = pmesh.gather_rows(local.detach(), mesh, dim).requires_grad_()
-    with torch.enable_grad():
-        loss_val, aux = loss(glob, *loss_args)
-        (d_glob,) = torch.autograd.grad(loss_val, glob)
-    with full_f32():
-        grads = torch.autograd.grad(
-            local, leaves, grad_outputs=pmesh.local_rows(d_glob, mesh, dim),
-            allow_unused=True)
-    grads = [torch.zeros_like(leaf) if g is None else g
-             for leaf, g in zip(leaves, grads)]
-    grads = pmesh.all_reduce_grads(grads, mesh)
+    with span("train.forward"):
+        with torch.enable_grad():
+            local = logits_fn(optim.tree_from_items(zip(paths, leaves)),
+                              *local_inputs)
+        glob = pmesh.gather_rows(local.detach(), mesh, dim).requires_grad_()
+        with torch.enable_grad():
+            loss_val, aux = loss(glob, *loss_args)
+    with span("train.backward"):
+        with torch.enable_grad():
+            (d_glob,) = torch.autograd.grad(loss_val, glob)
+        with full_f32():
+            grads = torch.autograd.grad(
+                local, leaves,
+                grad_outputs=pmesh.local_rows(d_glob, mesh, dim),
+                allow_unused=True)
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for leaf, g in zip(leaves, grads)]
+        grads = pmesh.all_reduce_grads(grads, mesh)
     aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
     return (loss_val.detach(), aux), optim.tree_from_items(zip(paths, grads))
 
@@ -150,9 +163,11 @@ def make_train_step(tx: optim.AdamW, config: ast_mod.ASTConfig,
     vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh)
 
     def train_step(params, opt_state, feats, labels):
-        (loss_val, logits), grads = vg(params, feats, labels)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = optim.apply_updates(params, updates)
+        with span("train.step"):
+            (loss_val, logits), grads = vg(params, feats, labels)
+            with span("train.optimizer"):
+                updates, opt_state = tx.update(grads, opt_state, params)
+                params = optim.apply_updates(params, updates)
         return params, opt_state, loss_val, logits
 
     return train_step
@@ -179,15 +194,19 @@ def make_accum_steps(tx: optim.AdamW, config: ast_mod.ASTConfig,
     vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh)
 
     def grad_step(params, grad_buf, feats, labels):
-        (loss_val, logits), grads = vg(params, feats, labels)
-        grad_buf = optim.tree_map(torch.add, grad_buf, grads)
+        with span("train.step"):
+            (loss_val, logits), grads = vg(params, feats, labels)
+            grad_buf = optim.tree_map(torch.add, grad_buf, grads)
         return grad_buf, loss_val, logits
 
     def apply_step(params, opt_state, grad_buf, n_micro):
-        grads = optim.tree_map(lambda g: g / n_micro, grad_buf)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = optim.apply_updates(params, updates)
-        return params, opt_state, optim.tree_map(torch.zeros_like, grads)
+        with span("train.step"):
+            with span("train.optimizer"):
+                grads = optim.tree_map(lambda g: g / n_micro, grad_buf)
+                updates, opt_state = tx.update(grads, opt_state, params)
+                params = optim.apply_updates(params, updates)
+            zeroed = optim.tree_map(torch.zeros_like, grads)
+        return params, opt_state, zeroed
 
     return grad_step, apply_step
 
