@@ -77,28 +77,32 @@ fails the run loudly:
      just after (per step 24 mha_packed_lse, 12 of each backward kernel;
      12 mha_packed for the no-grad loss after the last step; every plain
      attention version raises meanwhile), then as many of
-     train.steps.make_train_step ("torch" attention, what the JAX trainer
-     runs) from the same weights; the loss must fall on the fixed batch in
-     both; then at each seed of ROUTE_SEEDS (weights from it, the batch
-     from it + 1) the kernel route's TRAIN_STEPS updates, and at each of
-     its parameter points (before each update, after the last) both
-     routes' loss and gradients at those parameters, within TRAIN_LOSS_TOL
-     and TRAIN_GRAD_REL_TOL (30 points); each route's own trajectory is
-     printed, not gated; one f32 step of a small model on the card against
-     the CPU (the backward's TF32 trap); times per step;
+     train.steps.make_train_step named "torch" (the plain attention, what
+     the JAX trainer's default runs) from the same weights; the loss must
+     fall on the fixed batch in both; then at each seed of ROUTE_SEEDS
+     (weights from it, the batch from it + 1) the kernel route's
+     TRAIN_STEPS updates, and at each of its parameter points (before each
+     update, after the last) both routes' loss and gradients at those
+     parameters, within TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL (30 points);
+     each route's own trajectory is printed, not gated; one f32 step of a
+     small model on the card against the CPU (the backward's TF32 trap);
+     times per step;
   7. training loop: a fold of seeded one-second WAVs (32 per class in
      train, 8 in val and test), compute_stats on the card for its mean and
      std, then train.loop.run_cross_validation([1], cfg) on the card at
      full width (init_model's random ASTConfig(), max_length 1024), batch
      16, bf16, augmentation on, 2 epochs (8 steps), no early stopping,
-     with the counts zeroed just before and read just after (the loop's
-     steps run the "torch" attention, as the JAX trainer runs XLA's, so
-     no attention kernel launches); every loss finite, the artifact
-     contract of tests/test_train_loop.py, the best directory served by
-     TwoStageEngine on phase 4's audio; ms per step (median of steps 2-8),
-     featurization seconds and peak memory. Then a small f32 config on the
-     card: 2 epochs straight against 1 epoch and --resume for the second,
-     whose best parameters must be equal bit for bit;
+     with the counts zeroed just before and read just after (a bf16 step
+     on the card runs the "kernel" route, train.steps.train_attention_impl:
+     per step 24 mha_packed_lse and 12 of each backward kernel; the eval
+     step runs the "torch" attention, no launch); every loss finite, the
+     artifact contract of tests/test_train_loop.py, the best directory
+     served by TwoStageEngine on phase 4's audio; ms per step (median of
+     steps 2-8), featurization seconds and peak memory. Then two small
+     configs on the card, f32 at head width 16 (the "torch" route) and
+     bf16 at head width 64 (the "kernel" route, its launches counted): 2
+     epochs straight against 1 epoch and --resume for the second, whose
+     best parameters must be equal bit for bit;
   8. int8 and serving, at full width (phase 4's stages and audio, bf16,
      "kernel" attention): models.ast._dense_int8 on the card bit for bit
      the CPU's (each step: the token scales, the int8 activations, the
@@ -133,7 +137,8 @@ fails the run loudly:
      the "torch" attention, one epoch), counts zeroed just before and read
      just after (no attention kernel launches on this path): ms per
      vmapped step (median of steps 2-4, ending in the host read of the
-     losses) beside phase 7's sequential ms/step and its ratio to 5x, peak
+     losses) beside phase 7's sequential ms/step (the "kernel" route; the
+     vmapped steps run "torch") and its ratio to 5x, peak
      memory, each fold's first-step loss against its own non-vmapped
      forward, every fold's artifacts; train.trial_parallel on fold 1 with
      three trials (ms/step, peak memory); and at a small f32 config both
@@ -329,9 +334,13 @@ LOOP_EPOCHS, LOOP_BATCH = 2, 16
 MESH_F32_TOL = 1e-5
 MESH_SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
                   intermediate_size=128, max_length=128, num_labels=2)
-# phase 7's small f32 config for the resume check
+# phase 7's small f32 config for the resume check (head width 16: the
+# "torch" route), and its bf16 config (head width 64: the "kernel" route)
 LOOP_SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                   intermediate_size=128, max_length=128)
+LOOP_SMALL_BF16 = dict(hidden_size=128, num_hidden_layers=2,
+                       num_attention_heads=2, intermediate_size=256,
+                       max_length=128)
 
 
 def log(msg: str) -> None:
@@ -1484,9 +1493,9 @@ def check_same_points(what: str, readings: list) -> None:
 
 def phase_train(A, ast_mod, torch) -> dict:
     """Training at full width: the "kernel" route (mha_packed_trainable)
-    and the "torch" route (train.steps.make_train_step) from the same
-    weights on the same fixed batch, launches counted and timed at seed
-    7; then both routes at the same parameter points at every seed of
+    and the "torch" route (train.steps.make_train_step named "torch") from
+    the same weights on the same fixed batch, launches counted and timed at
+    seed 7; then both routes at the same parameter points at every seed of
     ROUTE_SEEDS. Returns the launch counts of the kernel route."""
     from zenker_audio_detection_tpu_torch.train import losses, optim, steps
 
@@ -1511,7 +1520,7 @@ def phase_train(A, ast_mod, torch) -> dict:
         u, o = tx.update(g, o, p)
         return optim.apply_updates(p, u), o, lv
 
-    torch_step = steps.make_train_step(tx, cfg, loss)
+    torch_step = steps.make_train_step(tx, cfg, loss, attention_impl="torch")
     torch_loss = steps.make_loss_fn(cfg, loss)
 
     def run(route, p, f, y):
@@ -1551,10 +1560,8 @@ def phase_train(A, ast_mod, torch) -> dict:
     # remat (the lse forward), one backward (both backward kernels); then the
     # forward without a gradient that reads the loss after the last step
     layers = cfg.num_hidden_layers
-    expected = {**{k: 0 for k in KERNELS}, "mha_packed": layers,
-                "mha_packed_lse": TRAIN_STEPS * 2 * layers,
-                "mha_packed_bwd_dq": TRAIN_STEPS * layers,
-                "mha_packed_bwd_dkdv": TRAIN_STEPS * layers}
+    expected = {**kernel_route_launches(layers, TRAIN_STEPS),
+                "mha_packed": layers}
     log(f"[train] launches on the kernel route: {launches} (expected "
         f"{expected}: {TRAIN_STEPS} steps x {layers} layers x (forward + "
         f"recomputed forward under remat: mha_packed_lse; one backward: "
@@ -1800,8 +1807,8 @@ def phase_train_loop(A, C, ast_mod, torch, smi: str) -> float:
     """The training loop on the card: compute_stats, then
     run_cross_validation at full width (the path, counts zeroed just before
     and read just after), its artifacts, its best directory in the engine;
-    then bitwise resume at a small f32 config. Returns the loop's ms per
-    step (median of steps 2 on)."""
+    then bitwise resume at a small f32 and a small bf16 config. Returns the
+    loop's ms per step (median of steps 2 on)."""
     import dataclasses
 
     from zenker_audio_detection_tpu_torch.data import stats as S
@@ -1863,23 +1870,28 @@ def phase_train_loop(A, C, ast_mod, torch, smi: str) -> float:
         with open(os.path.join(cfg.output_root, "fold1", "history.json")) as f:
             history = json.load(f)
         steps = LOOP_EPOCHS * -(-2 * LOOP_TRAIN_PER_CLASS // LOOP_BATCH)
-        log(f"[loop] launches on the training loop's path: {launches} (the "
-            f"steps run the torch attention, as the JAX trainer runs XLA's)")
+        expected = kernel_route_launches(
+            ast_mod.ASTConfig().num_hidden_layers, steps)
+        log(f"[loop] launches on the training loop's path: {launches} "
+            f"(expected {expected}: the bf16 steps run the kernel route, "
+            f"{steps} steps x (2 mha_packed_lse, 1 of each backward kernel) "
+            f"a layer; the eval step runs the torch attention)")
         log(f"[loop] step losses {[round(x, 6) for x in step_losses]}; epoch "
             f"losses {[round(h['loss'], 6) for h in history]}; eval f1 "
             f"{[h['f1'] for h in history]}; test "
             f"{result['per_fold'][0]['fold1_test_eval_f1']:.4f} f1")
-        if any(launches.values()):
-            raise AssertionError(f"the loop launched attention kernels: "
-                                 f"{launches}")
+        if launches != expected:
+            raise AssertionError(f"the loop's launches {launches}, expected "
+                                 f"{expected}")
         if len(step_ms) != steps or not all(
                 math.isfinite(x) for x in step_losses
                 + [h["loss"] for h in history]):
             raise AssertionError(f"{len(step_ms)} steps (want {steps}), "
                                  f"losses {step_losses}")
         check_fold_artifacts(cfg.output_root, cfg.num_epochs)
-        log(f"[loop] full width, batch {LOOP_BATCH}, bf16, augmentation on: "
-            f"{np.median(step_ms[1:]):.2f} ms/step (median of steps "
+        log(f"[loop] full width, batch {LOOP_BATCH}, bf16, augmentation on, "
+            f"kernel route: {np.median(step_ms[1:]):.2f} ms/step (median of "
+            f"steps "
             f"2-{steps}; each step: {[round(x, 2) for x in step_ms]}); "
             f"featurization {sum(feat_s):.2f} s in {len(feat_s)} calls "
             f"({[round(x, 2) for x in feat_s]}: train "
@@ -1906,42 +1918,71 @@ def phase_train_loop(A, C, ast_mod, torch, smi: str) -> float:
             f"stage-1 swallow share {float((p1[:, 1] > 0.5).mean()):.3f}")
         del engine, params
 
-        # --resume at a small f32 config: bit for bit a straight run
-        small = ast_mod.ASTConfig(**LOOP_SMALL)
-        pretrained = os.path.join(tmp, "small")
-        convert.save_hf_model_dir(
-            ast_mod.init_params(np.random.default_rng(11), small), small,
-            pretrained)
-        base = L.TrainFoldConfig(
-            stage="stage1", data_dir=data, pretrained_model_dir=pretrained,
-            num_epochs=2, batch_size=LOOP_BATCH, learning_rate=1e-3,
-            dtype=torch.float32, augment=False, enable_early_stopping=False,
-            device="cuda")
-        roots = [os.path.join(tmp, name) for name in ("straight", "resumed")]
-        m_straight = L.train_fold(1, dataclasses.replace(
-            base, output_root=roots[0]))
-        L.train_fold(1, dataclasses.replace(
-            base, output_root=roots[1], on_epoch_end=lambda e, m: e >= 1))
-        m_resumed = L.train_fold(1, dataclasses.replace(
-            base, output_root=roots[1], resume=True))
-        bests = [convert.read_safetensors(os.path.join(
-            r, "fold1", "best", "model.safetensors")) for r in roots]
-        histories = []
-        for r in roots:
-            with open(os.path.join(r, "fold1", "history.json")) as f:
-                histories.append(json.load(f))
-        same = (sorted(bests[0]) == sorted(bests[1]) and all(
-            np.array_equal(bests[0][k], bests[1][k]) for k in bests[0]))
-        metrics_same = all(m_straight[k] == m_resumed[k] for k in m_straight
-                           if "runtime" not in k and "per_second" not in k)
-        log(f"[loop] small f32 config on the card, 2 epochs straight vs 1 + "
-            f"--resume 1: best parameters bitwise equal {same}, metrics "
-            f"equal {metrics_same}, histories equal "
-            f"{histories[0] == histories[1]} (losses "
-            f"{[h['loss'] for h in histories[0]]})")
-        if not (same and metrics_same and histories[0] == histories[1]):
-            raise AssertionError("--resume on the card is not a straight run")
+        # --resume at small configs: bit for bit a straight run, on the
+        # "torch" route (f32) and on the "kernel" route (bf16)
+        per_epoch = -(-2 * LOOP_TRAIN_PER_CLASS // LOOP_BATCH)
+        for what, spec, dtype in (("f32", LOOP_SMALL, torch.float32),
+                                  ("bf16", LOOP_SMALL_BF16, torch.bfloat16)):
+            small = ast_mod.ASTConfig(**spec)
+            route = L.steps.train_attention_impl("cuda", dtype, small)
+            pretrained = os.path.join(tmp, f"small_{what}")
+            convert.save_hf_model_dir(
+                ast_mod.init_params(np.random.default_rng(11), small), small,
+                pretrained)
+            base = L.TrainFoldConfig(
+                stage="stage1", data_dir=data,
+                pretrained_model_dir=pretrained, num_epochs=2,
+                batch_size=LOOP_BATCH, learning_rate=1e-3, dtype=dtype,
+                augment=False, enable_early_stopping=False, device="cuda")
+            roots = [os.path.join(tmp, f"{name}_{what}")
+                     for name in ("straight", "resumed")]
+            zero_counts(A)
+            m_straight = L.train_fold(1, dataclasses.replace(
+                base, output_root=roots[0]))
+            L.train_fold(1, dataclasses.replace(
+                base, output_root=roots[1], on_epoch_end=lambda e, m: e >= 1))
+            m_resumed = L.train_fold(1, dataclasses.replace(
+                base, output_root=roots[1], resume=True))
+            launches = counts(A)
+            # 2 epochs straight, then 1 + 1 resumed
+            expected = kernel_route_launches(
+                small.num_hidden_layers,
+                4 * per_epoch if route == "kernel" else 0)
+            bests = [convert.read_safetensors(os.path.join(
+                r, "fold1", "best", "model.safetensors")) for r in roots]
+            histories = []
+            for r in roots:
+                with open(os.path.join(r, "fold1", "history.json")) as f:
+                    histories.append(json.load(f))
+            same = (sorted(bests[0]) == sorted(bests[1]) and all(
+                np.array_equal(bests[0][k], bests[1][k]) for k in bests[0]))
+            metrics_same = all(m_straight[k] == m_resumed[k]
+                               for k in m_straight if "runtime" not in k
+                               and "per_second" not in k)
+            log(f"[loop] small {what} config (head width "
+                f"{small.hidden_size // small.num_attention_heads}, {route} "
+                f"route) on the card, 2 epochs straight vs 1 + --resume 1: "
+                f"best parameters bitwise equal {same}, metrics equal "
+                f"{metrics_same}, histories equal "
+                f"{histories[0] == histories[1]} (losses "
+                f"{[h['loss'] for h in histories[0]]}); launches {launches} "
+                f"(expected {expected})")
+            if launches != expected:
+                raise AssertionError(f"small {what}: launches {launches}")
+            if not (same and metrics_same and histories[0] == histories[1]):
+                raise AssertionError(f"--resume on the card is not a "
+                                     f"straight run (small {what})")
     return float(np.median(step_ms[1:]))
+
+
+def kernel_route_launches(layers: int, n_steps: int) -> dict:
+    """The counts of `n_steps` train steps on the "kernel" route under remat
+    "full": per layer and step two mha_packed_lse (the forward and its
+    recomputation) and one of each backward kernel; no other kernel."""
+    return {**{k: 0 for k in KERNELS},
+            "mha_packed_lse": 2 * layers * n_steps,
+            "mha_packed_bwd_dq": layers * n_steps,
+            "mha_packed_bwd_dkdv": layers * n_steps}
 
 
 # ---------------------------------------------------------------------------
@@ -2783,7 +2824,8 @@ def phase_parallel(A, ast_mod, torch, smi: str, loop_ms: float) -> None:
             f"{LOOP_BATCH}, bf16, remat, torch attention: {per_step:.2f} ms "
             f"per step (median of steps 2-{steps}; each "
             f"{[round(x, 2) for x in step_ms]}) beside the sequential "
-            f"loop's {loop_ms:.2f} ms/step in this run (phase 7): "
+            f"loop's {loop_ms:.2f} ms/step on the kernel route in this run "
+            f"(phase 7): "
             f"{per_step / (F * loop_ms):.3f} of {F} x sequential; peak "
             f"memory {peak:.2f} GB; run_cross_validation {run_s:.1f} s; "
             f"launches {launches}; every fold's artifacts present; {smi}")
@@ -2809,12 +2851,12 @@ def phase_parallel(A, ast_mod, torch, smi: str, loop_ms: float) -> None:
             raise AssertionError(f"{len(step_ms)} trial steps, {launches}")
         per_step = float(np.median(step_ms[1:]))
         log(f"[parallel] {len(TRIALS)} trials sharing one batch, full "
-            f"width, batch {LOOP_BATCH}, bf16: {per_step:.2f} ms per step "
-            f"(median of steps 2-{steps}; each "
+            f"width, batch {LOOP_BATCH}, bf16, torch attention: "
+            f"{per_step:.2f} ms per step (median of steps 2-{steps}; each "
             f"{[round(x, 2) for x in step_ms]}), "
             f"{per_step / (len(TRIALS) * loop_ms):.3f} of {len(TRIALS)} x "
-            f"sequential; peak memory {peak:.2f} GB; launches {launches}; "
-            f"{smi}")
+            f"sequential (phase 7's kernel route); peak memory "
+            f"{peak:.2f} GB; launches {launches}; {smi}")
 
         # ---- numerics at a small f32 config against the sequential path
         small = ast_mod.ASTConfig(**LOOP_SMALL)

@@ -16,10 +16,16 @@ training behaviour of the reference's per-fold pipeline
 The names and semantics are the JAX module's. The loop runs on one device,
 `TrainFoldConfig.device`: CUDA unless the caller names the CPU, and it
 raises when CUDA is asked for and missing. The log-mel runs there in f32
-with TF32 off (`ops/fbank.logmel_frames`); the train and eval steps
-(`train/steps.py`) run the model's "torch" attention, as the JAX trainer's
-steps run its default "xla" attention. `fold_parallel` trains all folds
-at once in one vmapped step on that device (train/fold_parallel.py).
+with TF32 off (`ops/fbank.logmel_frames`). The train step
+(`train/steps.py`, no route named) runs the Hopper attention kernels
+forward and backward when it trains in bf16 on a CUDA device at a head
+width they take, the port of the JAX trainer's "pallas" route; elsewhere,
+and in the eval step everywhere, it runs the model's "torch" attention, as
+the JAX trainer's steps run their default "xla" attention. On the card
+the kernels take a bf16 step at the AST's full width to about a third of
+the "torch" route's time. `fold_parallel` trains all folds at once in one
+vmapped step on that device (train/fold_parallel.py), on the "torch"
+attention, which runs under vmap.
 
 Over several devices (`num_devices`, `num_slices`; parallel/mesh.py) the
 loop runs in every rank of a process group (parallel/launch.py starts

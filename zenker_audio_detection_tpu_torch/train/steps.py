@@ -7,10 +7,22 @@ does, so `models.ast.cast_params`, which pre-casts for inference, is not
 used here. The steps are functional like the JAX ones: they return new
 parameters and optimizer state and leave their arguments as they were.
 
-The steps run the model's "torch" attention, as the JAX trainer's steps run
-its default "xla" attention. A step with the Hopper kernel is
-`value_and_grad` over a loss function whose forward passes
-`attention_impl="kernel"`.
+Which attention a step runs (`train_attention_impl`) follows from its
+input unless the caller names one. A bf16 step on a CUDA device, at a head
+width the kernels are built for, runs the "kernel" route:
+`ops.attention.mha_packed_trainable`, the Hopper forward that keeps each
+row's log-sum-exp and the two flash backward kernels, the port of the JAX
+trainer's "pallas" route (its custom VJP). Every other step runs the
+"torch" route, `mha_packed_reference`, as the JAX trainer's steps run their
+default "xla" attention. Both compute f32 scores of the bf16 q and k, an
+f32 softmax, p rounded to bf16 before the PV product and f32 sums; the
+kernels do it tile by tile with an online softmax and keep no (S, S)
+scores: at the AST's full width on an H100 a step takes about a third of
+the "torch" route's time (`PERF.md`). The CPU keeps "torch", where the
+steps are held to the JAX package's "xla" steps; so do f32 steps (the
+kernels' f32 instances are not Hopper designs) and head widths the kernels
+refuse. The eval step (`make_eval_step`) runs "torch" on every device: the
+best epoch is picked on its logits.
 
 The backward runs inside `full_f32()`: the forward's own `full_f32()` has
 exited by then, and cuDNN would otherwise compute the f32 patch
@@ -41,6 +53,7 @@ from typing import Callable
 import torch
 
 from ..models import ast as ast_mod
+from ..ops.attention import KERNEL_HEAD_DIMS
 from ..parallel import mesh as pmesh
 from ..utils.precision import full_f32
 from ..utils.profiling import span
@@ -105,34 +118,55 @@ def _divides(n: int, mesh) -> bool:
     return mesh is not None and n % pmesh.mesh_size(mesh) == 0
 
 
+def train_attention_impl(device_type: str, dtype,
+                         config: ast_mod.ASTConfig,
+                         attention_impl: str | None = None) -> str:
+    """The attention route of a train step on `device_type` ("cuda",
+    "cpu", ...) in compute `dtype`: `attention_impl` when the caller names
+    one, else "kernel" for bf16 on a CUDA device at a head width
+    (hidden_size // num_attention_heads) in KERNEL_HEAD_DIMS, else "torch"
+    (module docstring)."""
+    if attention_impl is not None:
+        return attention_impl
+    head_dim = config.hidden_size // config.num_attention_heads
+    if (device_type == "cuda" and dtype == torch.bfloat16
+            and head_dim in KERNEL_HEAD_DIMS):
+        return "kernel"
+    return "torch"
+
+
 def make_value_and_grad(config: ast_mod.ASTConfig, loss: Callable,
                         dtype=torch.bfloat16, remat: bool = True,
                         remat_policy: str = "full", mesh=None,
-                        attention_impl: str = "torch"):
+                        attention_impl: str | None = None):
     """vg(params, feats, labels) -> ((loss, logits), grads) of the batch's
     mean loss. With `mesh`, feats and labels are the global batch: when
     its rows divide over the mesh each rank runs its share
     (`sharded_value_and_grad`), else (a tail batch) the whole batch.
-    `attention_impl` "kernel" runs the Hopper kernels' trainable route."""
+    `attention_impl` None takes the route `train_attention_impl` gives for
+    the labels' device; "torch" or "kernel" is run as named."""
 
-    def forward(params, feats):
+    def forward(params, feats, impl):
         return ast_mod.forward(params, feats, config, dtype=dtype,
                                remat=remat, remat_policy=remat_policy,
-                               attention_impl=attention_impl)
+                               attention_impl=impl)
 
     def on_logits(logits, labels):
         return loss(logits, labels), logits
 
-    def whole(params, feats, labels):
-        return on_logits(forward(params, feats), labels)
+    def whole(params, feats, labels, impl):
+        return on_logits(forward(params, feats, impl), labels)
 
     def vg(params, feats, labels):
         device = labels.device
+        impl = train_attention_impl(device.type, dtype, config,
+                                    attention_impl)
         if not _divides(len(labels), mesh):
-            return value_and_grad(whole, params, feats.to(device), labels)
+            return value_and_grad(whole, params, feats.to(device), labels,
+                                  impl)
         local = pmesh.local_rows(feats, mesh).to(device)
-        return sharded_value_and_grad(forward, on_logits, params, (local,),
-                                      (labels,), mesh)
+        return sharded_value_and_grad(forward, on_logits, params,
+                                      (local, impl), (labels,), mesh)
 
     return vg
 
@@ -153,14 +187,18 @@ def make_loss_fn(config: ast_mod.ASTConfig, loss: Callable,
 
 def make_train_step(tx: optim.AdamW, config: ast_mod.ASTConfig,
                     loss: Callable, dtype=torch.bfloat16, remat: bool = True,
-                    remat_policy: str = "full", mesh=None):
+                    remat_policy: str = "full", mesh=None,
+                    attention_impl: str | None = None):
     """train_step(params, opt_state, feats, labels) -> (params', opt_state',
     loss, logits): one optimizer update on the batch's mean loss. With
     `mesh` (data parallel, module docstring) every rank passes the global
     batch (feats may stay on the host: a rank moves only its rows to the
     labels' device) and gets the global loss and logits; the parameters
-    stay replicated, since every rank applies the same summed gradient."""
-    vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh)
+    stay replicated, since every rank applies the same summed gradient.
+    `attention_impl` as `make_value_and_grad` takes it: None lets the
+    labels' device, `dtype` and the head width choose the route."""
+    vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh,
+                             attention_impl)
 
     def train_step(params, opt_state, feats, labels):
         with span("train.step"):
@@ -175,7 +213,8 @@ def make_train_step(tx: optim.AdamW, config: ast_mod.ASTConfig,
 
 def make_accum_steps(tx: optim.AdamW, config: ast_mod.ASTConfig,
                      loss: Callable, dtype=torch.bfloat16, remat: bool = True,
-                     remat_policy: str = "full", mesh=None):
+                     remat_policy: str = "full", mesh=None,
+                     attention_impl: str | None = None):
     """Gradient accumulation as two steps:
 
       grad_step(params, grad_buf, feats, labels) -> (grad_buf', loss, logits)
@@ -189,9 +228,10 @@ def make_accum_steps(tx: optim.AdamW, config: ast_mod.ASTConfig,
     micro-batch weighs as much as a full one (the HF Trainer
     gradient_accumulation_steps convention). The stage-2 focal loss takes
     its class α per micro-batch, so its accumulated gradients differ from a
-    whole batch's by design. `mesh`: each micro-batch as make_train_step
-    takes a batch."""
-    vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh)
+    whole batch's by design. `mesh` and `attention_impl`: each micro-batch
+    as make_train_step takes a batch."""
+    vg = make_value_and_grad(config, loss, dtype, remat, remat_policy, mesh,
+                             attention_impl)
 
     def grad_step(params, grad_buf, feats, labels):
         with span("train.step"):
