@@ -12,14 +12,16 @@ fails the run loudly:
   1. device: CUDA must be present; prints nvidia-smi's name and power limit;
   2. build: compiles every kernel source with nvcc (one per source, in
      parallel), prints each instance's registers and spills and checks
-     that the bf16 D=64 instances serving mha_packed (the warp-specialised
-     walk of csrc/attention_ws.cu) and the backward (the walks of
+     that the bf16 D=64 instances serving mha_packed and
+     mha_packed_relpos (the warp-specialised walk of csrc/attention_ws.cu)
+     and the backward (the walks of
      csrc/attention_bwd.cu) keep to their launch bounds' registers with
      their setmaxnreg in force, and mha_batched_heads' to 128; prints the
      CTAs per SM the card fits of every instance of csrc/attention_ws.cu and
      csrc/attention_pipelined.cu (mha_packed, mha_packed_lse, mha,
-     mha_pairs, mha_batched_heads, mha_fused, each in bf16 and f32) and of
-     the bf16 backward kernels, and fails below the number that
+     mha_pairs, mha_batched_heads, mha_fused, each in bf16 and f32; the
+     bf16 mha_packed_relpos) and of the bf16 backward kernels, and fails
+     below the number that
      launch_geometry's grid assumes;
   3. kernel vs plain: mha_packed against mha_packed_reference at the main
      path's shapes and at head width 32, and on the persistent walk's hard
@@ -51,6 +53,16 @@ fails the run loudly:
      poisoned tails, and bitwise against mha_packed on every even-headed
      case; 3 heads (odd) must go to mha_packed; timed beside mha_packed in
      bf16, f32 and at B=1;
+  3d. mha_packed_relpos (BEATs's attention, the walk of
+     csrc/attention_ws.cu with the gated relative-position bias, bf16):
+     against mha_packed_relpos_reference at (128, 512, 768) with 12 heads
+     (the BEATs cell's chunk), on hard cases (S 300, 146, 1214 and 77; head
+     width 32; B=1; 3 heads) and on a poisoned tail, within RELPOS_TOL of
+     the larger of |plain| and 1, with gates of both signs; with every gate
+     0 bitwise mha_packed's output; timed at (128, 512, 768) beside
+     mha_packed on the same q, k, v, the plain version and
+     scaled_dot_product_attention with the bias as its mask, against
+     `bound` and the operations' bound 4 B NH S^2 D at the bf16 peak;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counter zeroed just before and read just after; the gated engine's
@@ -61,6 +73,12 @@ fails the run loudly:
      with attention_impl="torch" (the gate decisions compared exactly
      outside that band), a small f32 model against the CPU, and the front
      end's rfft branch on the card against its matmul DFT and the CPU;
+  4b. BEATs engine: TwoStageEngine with two full-size BEATs stages
+     (BEATsConfig(num_labels=2), S = 512) at batch 128, bf16, "all" mode,
+     on the same audio, the counts zeroed just before and read just after
+     (12 mha_packed_relpos launches per stage-chunk, no other kernel), its
+     window probabilities against the same engine with
+     attention_impl="torch" within ENGINE_TOL;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
      directories;
   6. training: mha_packed_trainable alone at (16, 1214, 768) f32 and bf16:
@@ -315,6 +333,24 @@ PIPELINED_CASES = (
     + [((2, 300, nh, 64), dt) for nh in (1, 3) for dt in ("bfloat16", "float32")]
     + [((1, 300, 28, 64), dt) for dt in ("bfloat16", "float32")]
     + [((2, 300, 4, 32), "bfloat16")])
+# mha_packed_relpos (BEATs's attention: mha_packed's walk with the gated
+# relative-position bias, bf16 only): (B, S, NH, D) at the BEATs cell's
+# chunk (1024 frames, 512 tokens), then the hard cases: S no multiple of
+# the tiles, head width 32, fewer work items than SMs, S past the AST's
+# 1214, an odd head count
+RELPOS_SHAPE = (128, 512, 12, 64)
+RELPOS_CASES = ((3, 300, 4, 32), (1, 146, 12, 64), (2, 1214, 12, 64),
+                (5, 77, 3, 64))
+# its bf16 outputs against the plain version, as max |kernel - plain| over
+# the larger of |plain| and 1: the kernel rounds the unnormalised
+# exp(s - m) to bf16 where the plain version rounds the normalised p, and
+# both round the outputs (2^-8 relative), as ATTN_TOL's bf16 case; the bias
+# adds one f32 rounding to each score and makes p peakier, so outputs reach
+# |v| ~ 4 and an absolute measure would scale with them: four bf16 ulps
+RELPOS_TOL = 2.0 ** -6
+# the BEATs stages' feature statistics (BEATs.preprocess's fbank mean and
+# std)
+BEATS_MEAN, BEATS_STD = 15.41663, 6.55582
 BWD_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_bwd.cu"
 # the JAX custom VJP mha_packed_trainable and its XLA backward
 TRAINABLE_REPLACES = "zenker_audio_detection_tpu/ops/attention.py:422"
@@ -349,7 +385,7 @@ def log(msg: str) -> None:
 
 # every counted wrapper
 KERNELS = ("mha_packed", "mha_pairs", *ENTRY_POINTS, "mha_packed_lse",
-           "mha_packed_bwd_dq", "mha_packed_bwd_dkdv")
+           "mha_packed_bwd_dq", "mha_packed_bwd_dkdv", "mha_packed_relpos")
 
 
 def zero_counts(A) -> None:
@@ -831,6 +867,108 @@ def phase_pairs(A, torch) -> dict:
             "b1_packed_ms": b1_packed_ms}
 
 
+def relpos_inputs(torch, B: int, S: int, NH: int, D: int, gen):
+    """bf16 packed q, k, v, gates of both signs in (-3, 3) (the BEATs
+    cell's weights give gates of either sign) and a bias vector N(0, 1)."""
+    q, k, v = (torch.randn(B, S, NH * D, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    gate = 6.0 * torch.rand(B, NH, S, device="cuda", generator=gen) - 3.0
+    rel = torch.randn(NH, 2 * S - 1, device="cuda", generator=gen)
+    return q, k, v, gate, rel
+
+
+def relpos_err(got, want) -> float:
+    """max |got - want| over the larger of |want| and 1."""
+    want = want.float()
+    return float(((got.float() - want).abs() / want.abs().clamp_min(1.0))
+                 .max())
+
+
+def require_relpos(what: str, got, want) -> float:
+    err = relpos_err(got, want)
+    log(f"[relpos] {what}: max |kernel - plain| / max(|plain|, 1) "
+        f"{err:.3e} (tolerance {RELPOS_TOL})")
+    if not (got.shape == want.shape and math.isfinite(err)
+            and err <= RELPOS_TOL):
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{err} > {RELPOS_TOL}")
+    return err
+
+
+def phase_relpos(A, torch) -> dict:
+    """mha_packed_relpos against mha_packed_relpos_reference at
+    RELPOS_SHAPE, on RELPOS_CASES and on a poisoned tail; with every gate
+    0 its output bitwise mha_packed's (the bias adds 0 to each score);
+    then its time beside mha_packed on the same q, k, v, the plain
+    version, scaled_dot_product_attention with the bias materialised as
+    its bf16 mask (the yardstick; the port never calls it) and the bound
+    (`bound`: at S = 512 the bytes of q, k, v and the output, 0.1202 ms,
+    are above the operations 4 B NH S^2 D at the bf16 peak, 0.1042 ms,
+    which the record also gives, as relpos_attention_roofline_pct.beats
+    counts them)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = 0.0
+    for B, S, NH, D in (RELPOS_SHAPE, *RELPOS_CASES):
+        q, k, v, gate, rel = relpos_inputs(torch, B, S, NH, D, gen)
+        got = A.mha_packed_relpos(q, k, v, gate, rel, num_heads=NH)
+        want = A.mha_packed_relpos_reference(q, k, v, gate, rel, NH)
+        torch.cuda.synchronize()
+        e = require_relpos(f"mha_packed_relpos {(B, S, NH, D)}", got, want)
+        if (B, S, NH, D) == RELPOS_SHAPE:
+            err = e
+        own = relpos_err(A.mha_packed(q, k, v, num_heads=NH),
+                         A.mha_packed_reference(q, k, v, NH))
+        log(f"[relpos] beside it, mha_packed against its own plain version "
+            f"on the same q, k, v: {own:.3e}")
+        require_equal(f"mha_packed_relpos {(B, S, NH, D)} with every gate 0 "
+                      f"vs mha_packed",
+                      A.mha_packed_relpos(q, k, v, torch.zeros_like(gate),
+                                          rel, num_heads=NH),
+                      A.mha_packed(q, k, v, num_heads=NH))
+        del got, want
+    # the poisoned tail: keys and values past S hold 1e4; a kernel that
+    # reads or fails to mask them moves every softmax row
+    NH, D, S = 3, 64, 65
+    q, k, v, _, _ = relpos_inputs(torch, 1, 128, NH, D, gen)
+    for b in (k, v):
+        b[:, S:] = 1e4
+    views = [b[:, :S] for b in (q, k, v)]  # contiguous at B = 1
+    _, _, _, gate, rel = relpos_inputs(torch, 1, S, NH, D, gen)
+    want = A.mha_packed_relpos_reference(*(x.clone() for x in views), gate,
+                                         rel, NH)
+    require_relpos(f"mha_packed_relpos poisoned tail (1, {S}, {NH}, {D})",
+                   A.mha_packed_relpos(*views, gate, rel, num_heads=NH),
+                   want)
+
+    B, S, NH, D = RELPOS_SHAPE
+    q, k, v, gate, rel = relpos_inputs(torch, B, S, NH, D, gen)
+    ms = median_ms(lambda: A.mha_packed_relpos(q, k, v, gate, rel,
+                                               num_heads=NH))
+    packed_ms = median_ms(lambda: A.mha_packed(q, k, v, num_heads=NH))
+    plain_ms = median_ms(lambda: A.mha_packed_relpos_reference(
+        q, k, v, gate, rel, NH), warmup=1, iters=3)
+    heads = [x.view(B, S, NH, D).transpose(1, 2) for x in (q, k, v)]
+    mask = A.relpos_bias(gate, rel).to(torch.bfloat16)
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=mask))
+    del heads, mask
+    b = bound(B, S, NH, D, 2)
+    log(f"[relpos] timing at {(B, S, NH * D)} bf16, {NH} heads: kernel "
+        f"{ms:.4f} ms ({100 * b['bound_ms'] / ms:.1f} % of the bound), "
+        f"mha_packed on the same q, k, v {packed_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention with the bias as "
+        f"its mask {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['text']})")
+    # the JAX package has no BEATs: the kernel replaces no function of it
+    return {"name": "mha_packed_relpos", "route": "cuda",
+            "source": WS_SOURCE, "replaces": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": library_ms,
+            "packed_ms": packed_ms, "operations_bound_ms":
+            4.0 * B * NH * S * S * D / PEAK_BF16_FLOPS * 1e3}
+
+
 def seeded_audio(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(16000 * seconds)) / 16000.0
@@ -1020,6 +1158,67 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
                   engine_gated, (p1_g, p2_g), torch_gated.window_probs(audio),
                   ENGINE_TOL)
     return launches
+
+
+def phase_beats_engine(A, C, torch) -> int:
+    """TwoStageEngine with two full-size BEATs stages (BEATsConfig with 2
+    labels: 12 layers, S = 512) at batch 128, bf16, "all" mode, on phase
+    4's audio: the "kernel" attention with the counts zeroed just before
+    and read just after (12 mha_packed_relpos launches per stage-chunk, no
+    other kernel), its window probabilities against the same engine with
+    attention_impl="torch" (no launch) within ENGINE_TOL. The weights are
+    models.beats.init_params' draws from numpy seeds 1 and 2, with the
+    bias table N(0, 1) so that the bias moves the scores (at the published
+    init's 0.02 it would not)."""
+    from zenker_audio_detection_tpu_torch.models import beats as beats_mod
+
+    batch = 128
+    audio = seeded_audio(60.0, seed=3)
+    W = len(C.window_starts(len(audio), 1.0, 0.5))
+    chunks = -(-W // batch)
+    cfg = beats_mod.BEATsConfig(num_labels=2)
+    specs = []
+    for seed, labels in ((1, ("Idle", "Swallow")),
+                         (2, ("Healthy", "Zenker"))):
+        rng = np.random.default_rng(seed)
+        params = beats_mod.init_params(rng, cfg)
+        params["rel_bias"] = torch.from_numpy(rng.standard_normal(
+            tuple(params["rel_bias"].shape)).astype(np.float32))
+        specs.append(C.StageSpec(params, cfg, BEATS_MEAN, BEATS_STD, labels))
+    engines = {impl: C.TwoStageEngine(*specs, C.CascadeConfig(
+        stage2_mode="all", attention_impl=impl, batch_size=batch,
+        dtype=torch.bfloat16), device="cuda") for impl in ("kernel", "torch")}
+    engines["kernel"].window_probs(audio)  # warm-up
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    zero_counts(A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1, p2 = engines["kernel"].window_probs(audio)
+    secs = time.perf_counter() - t0
+    launches = counts(A)
+    # ------------------------------------------------------------------
+    expected = {**{k: 0 for k in KERNELS},
+                "mha_packed_relpos": cfg.encoder_layers * 2 * chunks}
+    log(f"[beats] launches on the BEATs engine's path: {launches} (expected "
+        f"mha_packed_relpos {expected['mha_packed_relpos']} = "
+        f"{cfg.encoder_layers} layers x 2 stages x {chunks} chunks of "
+        f"{W} windows, no other kernel)")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} on the BEATs "
+                             f"engine's path, expected {expected}")
+    for p_, what in ((p1, "beats/stage1"), (p2, "beats/stage2")):
+        check_probs(p_, W, what)
+    q1, q2 = engines["torch"].window_probs(audio)
+    if counts(A) != launches:
+        raise AssertionError("attention_impl='torch' launched a kernel")
+    err = max(np.abs(q1 - p1).max(), np.abs(q2 - p2).max())
+    log(f"[beats] all mode {W / secs:.2f} windows/s ({secs:.3f} s), batch "
+        f"{batch}, bf16; window probabilities, kernel vs torch attention: "
+        f"max abs err {err:.3g} (tolerance {ENGINE_TOL})")
+    if not err <= ENGINE_TOL:
+        raise AssertionError(f"the BEATs engines disagree: {err}")
+    return launches["mha_packed_relpos"]
 
 
 def phase_small_f32(A, ast_mod, torch) -> None:
@@ -1668,7 +1867,9 @@ def phase_train_small_f32(ast_mod, torch) -> None:
 # 8-warp CTAs per SM) and csrc/attention_bwd.cu's dq_ws_kernel<64> and
 # dkdv_ws_kernel<64> (the training route's backward; one CTA per SM, with
 # setmaxnreg as ws_kernel)
-REGISTER_CAPS = {"attention_ws": (("mha_packed", "9ws_kernelILi64ELb0EE"),),
+REGISTER_CAPS = {"attention_ws": (("mha_packed", "9ws_kernelILi64ELb0EE"),
+                                  ("mha_packed_relpos",
+                                   "16ws_relpos_kernelILi64EE")),
                  "attention_pipelined": (("mha_batched_heads",
                                           "14batched_kernelILi64EE"),),
                  "attention_bwd": (("mha_packed_bwd_dq",
@@ -1712,8 +1913,8 @@ def check_instance_registers(report: str, name: str, mangled: str,
 
 def check_occupancy(A) -> dict:
     """Every instance of csrc/attention_pipelined.cu and
-    csrc/attention_ws.cu, and the bf16 ones of csrc/attention_bwd.cu, must
-    fit on an SM as
+    csrc/attention_ws.cu (mha_packed_relpos's bf16 ones among them), and
+    the bf16 ones of csrc/attention_bwd.cu, must fit on an SM as
     many times as launch_geometry's grid assumes (a register creep past the
     launch bounds or more shared memory would lower it); returns
     {name: {dtype: {D: CTAs per SM}}}."""
@@ -1731,10 +1932,12 @@ def check_occupancy(A) -> dict:
                     raise AssertionError(
                         f"{name} {dtype} D={D} fits {ctas} CTAs per SM, "
                         f"fewer than the {geo.ctas_per_sm} its grid assumes")
-    for name in ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv"):
+    for name in ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv",
+                 "mha_packed_relpos"):
         for D in A.KERNEL_HEAD_DIMS:
             geo = A.launch_geometry(name, 1, 64, 2, D, 2)
-            ctas = A.bwd_occupancy(name, D)
+            ctas = (A.pipelined_occupancy(name, 2, D)
+                    if name == "mha_packed_relpos" else A.bwd_occupancy(name, D))
             found.setdefault(name, {}).setdefault("bf16", {})[D] = ctas
             log(f"[build] {name} bf16 D={D}: {ctas} CTAs per SM "
                 f"({geo.threads} threads, {geo.smem} B of shared memory; "
@@ -3595,8 +3798,11 @@ def main() -> int:
     occupancy = check_occupancy(A)
 
     record = phase_kernel_vs_plain(A)
-    records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch)]
+    relpos = phase_relpos(A, torch)
+    records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch),
+               relpos]
     record["launches"] = phase_engine(A, C, ast_mod, torch, name)
+    relpos["launches"] = phase_beats_engine(A, C, torch)
     phase_small_f32(A, ast_mod, torch)
     phase_fbank(torch)
     phase_cli(A, C, ast_mod, torch)

@@ -263,6 +263,20 @@ def test_every_bound_entry_point_is_called():
                for part in ("dq", "dkdv") for suffix in ("bf16", "f32")}
     called |= {("attention_bwd", f"mha_packed_bwd_{part}_occupancy_bf16")
                for part in ("dq", "dkdv")}
+    # BEATs's attention: bf16 only, on the walk's source
+    called |= {("attention_ws", f"mha_packed_relpos{part}_bf16")
+               for part in ("", "_occupancy")}
     bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
              for name in names}
     assert bound == called
+
+
+def test_chip_smoke_counts_every_counted_wrapper():
+    """chip_smoke.py zeroes and reads the launches of every wrapper that
+    counts them, so a kernel put on a path is held to its count on the
+    card."""
+    import chip_smoke
+
+    counted = {name for name, fn in vars(A).items()
+               if callable(fn) and hasattr(fn, "launches")}
+    assert set(chip_smoke.KERNELS) == counted

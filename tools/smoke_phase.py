@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/smoke_phase.py [--phases engine train_alone train loop
-                                   serving audio parallel workflow mesh]
+    python3 tools/smoke_phase.py [--phases relpos engine beats_engine
+                                   train_alone train loop serving audio
+                                   parallel workflow mesh]
 
 Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
 chip_smoke.py's main would but without the phases before them:
-`engine` (phase 4: the full-width engine in both modes, its calibrated
-gate, against the "torch" attention), `train_alone`
+`relpos` (phase 3d: mha_packed_relpos against its plain version, timed
+beside mha_packed), `engine` (phase 4: the full-width engine in both
+modes, its calibrated gate, against the "torch" attention),
+`beats_engine` (phase 4b: two BEATs stages on the engine, their
+mha_packed_relpos launches counted), `train_alone`
 (mha_packed_trainable alone at (16, 1214, 768)), `train` (the
 full-width training step of both routes, which logs its ms per step),
 `loop` (the training loop, which logs its ms per step) and `serving`
@@ -36,8 +40,8 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("engine", "train_alone", "train", "loop", "serving", "audio",
-          "parallel", "workflow", "mesh")
+PHASES = ("relpos", "engine", "beats_engine", "train_alone", "train",
+          "loop", "serving", "audio", "parallel", "workflow", "mesh")
 
 
 def main() -> int:
@@ -64,7 +68,11 @@ def main() -> int:
     loop_ms = float("nan")
     for phase in args.phases:
         t0 = time.perf_counter()
-        if phase == "engine":
+        if phase == "relpos":
+            print(chip_smoke.phase_relpos(A, torch), flush=True)
+        elif phase == "beats_engine":
+            chip_smoke.phase_beats_engine(A, C, torch)
+        elif phase == "engine":
             chip_smoke.phase_engine(A, C, ast_mod, torch,
                                     torch.cuda.get_device_name(0))
         elif phase == "train_alone":

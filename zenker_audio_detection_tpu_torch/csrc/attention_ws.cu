@@ -1,6 +1,6 @@
 // A warp-specialised flash-attention walk for Hopper: the bf16 mha_packed,
-// mha_packed_lse, mha, mha_pairs and mha_qblock of the port's
-// ops/attention.py.
+// mha_packed_lse, mha, mha_pairs, mha_qblock and mha_packed_relpos of the
+// port's ops/attention.py.
 //
 // Replaces, in bf16, four Pallas kernels of
 // zenker_audio_detection_tpu/ops/attention.py and the forward of its custom
@@ -19,7 +19,10 @@
 //   mha_qblock     <- _attn_kernel_qblock (:165, call :202; grid (B * NH,
 //                     q blocks of block_q rows) on (B, S, NH, D)):
 //                     ws_kernel<D, false>
-// All five compute one function on one memory: a contiguous (B, S, NH, D)
+// mha_packed_relpos <- no Pallas kernel: BEATs's attention (models/beats.py),
+//                     whose scores take a relative-position bias gated per
+//                     query row, ws_relpos_kernel<D>, the same walk (below).
+// The first five compute one function on one memory: a contiguous (B, S, NH, D)
 // tensor is packed (B, S, NH * D). So mha, mha_pairs and mha_qblock launch
 // mha_packed's instance as it is, and their outputs are its outputs bit for
 // bit. The TPU decompositions are not carried over. mha's one program per
@@ -80,6 +83,22 @@
 // encoder comes from cudaGetDriverEntryPoint, so the library needs nvcc
 // alone (no -lcuda). tools/packed_ws.py builds this source with
 // other tile shapes and softmax forms and times them side by side.
+//
+// The bias of mha_packed_relpos. BEATs adds to the score of query row i and
+// key j of head h the term g[b, h, i] * rel[h, j - i + S - 1], a gate per
+// row times a Toeplitz vector of the head (2S - 1 f32 values; ops/
+// attention.py:mha_packed_relpos_reference). No (S, S) bias is ever
+// written: each consumer thread reads its two rows' gates once per item and,
+// per tile, the rel values its fragment needs from global memory (a head's
+// vector is 4 KB at S = 512, all heads 48 KB, so they stay in L1). Row g + 8
+// of a fragment needs at key c what row g needs at key c - 8, so a thread
+// loads 18 values a tile for its 32 scores. Those registers are the room a
+// consumer keeps for the next item's Q fragments, which the bias's walk
+// loads after an item instead of during it. The gated bias, times sqrt(D),
+// is added to the f32 scores before the softmax scales them into the log2
+// domain, so the online maximum, p's bf16 rounding and the f32 sums are the
+// walk's own. ws_kernel and ws_relpos_kernel are one device function,
+// walk<D, kLse, kBias>, so ws_kernel's instances compile as before.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -149,6 +168,34 @@ struct Rows {
     for (int kk = 0; kk < kKeys / 16; ++kk)
       wgmma<D, 1>(acc, pf[kk], smem_desc<D>(vs + kk * 16 * D * 2), 1);
     wgmma_commit();
+  }
+  // The gated relative-position bias added to the raw scores of keys k0..
+  // (see the head of the file): r0s points at rel[h, S - 1 - r0] of the
+  // fragment's row r0 (clamped to S - 1: a row past S is not stored), so
+  // row r0 reads r0s[c] at key c and row r0 + 8 reads r0s[c - 8], the value
+  // row r0 read at n - 1; row1 says that row r0 + 8 lies before S. g0 and g1
+  // are the rows' gates times sqrt(D). Keys past S are not read; the
+  // softmax masks them.
+  __device__ __forceinline__ void add_bias(int k0, int S, int t,
+                                           const float* __restrict__ r0s,
+                                           bool row1, float g0, float g1) {
+    const bool whole = k0 + kKeys <= S;
+    float prev[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = k0 + 2 * t + e;
+      prev[e] = row1 && (whole || c < S) ? __ldg(r0s + c - 8) : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + n * 8 + 2 * t + e;
+        const float b = whole || c < S ? __ldg(r0s + c) : 0.f;
+        s[4 * n + e] = fmaf(g0, b, s[4 * n + e]);
+        s[4 * n + 2 + e] = fmaf(g1, prev[e], s[4 * n + 2 + e]);
+        prev[e] = b;
+      }
   }
   // The online softmax of the scores of keys k0.. in place, in the order
   // of attention_pipelined.cu's item: the scores scaled into the log2
@@ -230,11 +277,13 @@ __device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4],
 // whose lanes start at base (token 0 of the batch element plus the head's
 // lane offset), rows ld elements apart; it consumes ring slots it .. it +
 // tiles - 1, with qf its Q fragments (load_q's). The lse of row r goes to
-// lse[lbase + r].
-template <int D, bool kLse>
+// lse[lbase + r]; with kBias the gate of row r is gate[lbase + r] and relh
+// is the head's rel vector.
+template <int D, bool kLse, bool kBias>
 __device__ __forceinline__ void consume(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, size_t base, size_t lbase, int S, int ld,
+    float* __restrict__ lse, const float* __restrict__ gate,
+    const float* __restrict__ relh, size_t base, size_t lbase, int S, int ld,
     int q0, uint32_t ring, uint32_t full, uint32_t empty, int it, int tiles,
     float scale_log2, const uint32_t (&qf)[D / 16][4]) {
   using R = Ring<D>;
@@ -262,6 +311,14 @@ __device__ __forceinline__ void consume(
   for (int i = 0; i < kKeys / 2; ++i) x.s[i] = 0.f;
   x.m0 = x.m1 = -INFINITY;
   x.l0 = x.l1 = 0.f;
+  const float* r0s = nullptr;
+  float g0 = 0.f, g1 = 0.f;
+  if constexpr (kBias) {
+    const float root = sqrtf((float)D);
+    g0 = r0 < S ? __ldg(gate + lbase + r0) * root : 0.f;
+    g1 = r1 < S ? __ldg(gate + lbase + r1) * root : 0.f;
+    r0s = relh + (S - 1 - min(r0, S - 1));
+  }
 
   // tile 0: its S product alone
   int slot = it % kStages;
@@ -271,6 +328,7 @@ __device__ __forceinline__ void consume(
   x.issue_s(ring + slot * R::kStage);
   wgmma_wait<0>();
   fence_regs(x.s);
+  if constexpr (kBias) x.add_bias(0, S, t, r0s, r1 < S, g0, g1);
   x.softmax(0, S, t, scale_log2);
   x.rescale_and_pack();
   // tile j's S product issued with tile j - 1's PV product; tile j's
@@ -287,6 +345,7 @@ __device__ __forceinline__ void consume(
     x.issue_pv(ring + prev * R::kStage);
     wgmma_wait<1>();  // the S product is done, the PV product may not be
     fence_regs(x.s);
+    if constexpr (kBias) x.add_bias(j * kKeys, S, t, r0s, r1 < S, g0, g1);
     x.softmax(j * kKeys, S, t, scale_log2);
     wgmma_wait<0>();
     fence_regs(x.acc);
@@ -323,13 +382,16 @@ __device__ __forceinline__ void consume(
 
 // The persistent walk over (b, h, kRows-row block) items, i = blockIdx.x +
 // j * gridDim.x, one CTA per SM. Warpgroups 0 .. kConsumers - 1 consume,
-// the last produces.
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1)
-ws_kernel(const __grid_constant__ CUtensorMap tk,
-          const __grid_constant__ CUtensorMap tv,
-          const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-          float* __restrict__ lse, int B, int S, int NH, float scale_log2) {
+// the last produces. tk and tv are the kernel's own parameters.
+template <int D, bool kLse, bool kBias>
+__device__ __forceinline__ void walk(const CUtensorMap& tk,
+                                     const CUtensorMap& tv,
+                                     const __nv_bfloat16* __restrict__ q,
+                                     __nv_bfloat16* __restrict__ o,
+                                     float* __restrict__ lse,
+                                     const float* __restrict__ gate,
+                                     const float* __restrict__ rel, int B,
+                                     int S, int NH, float scale_log2) {
   using R = Ring<D>;
   extern __shared__ __align__(16) unsigned char dyn[];
   const uint32_t ring =
@@ -384,35 +446,80 @@ ws_kernel(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
         for (int e = 0; e < 4; ++e) qf[kk][e] = qn[kk][e];
       const int next = i + gridDim.x;
-      if (next < items) load_q<D>(qn, q, base(next), S, H, row(next));
-      consume<D, kLse>(q, o, lse, base(i), (size_t)(i / nqb) * S, S, H,
-                       row(i), ring, full, empty, it, tiles, scale_log2, qf);
+      if constexpr (kBias) {
+        // the bias's registers take the room of the next item's Q
+        // fragments, which are loaded after the item, not during it
+        consume<D, kLse, kBias>(q, o, lse, gate,
+                                rel + (size_t)(i / nqb % NH) * (2 * S - 1),
+                                base(i), (size_t)(i / nqb) * S, S, H, row(i),
+                                ring, full, empty, it, tiles, scale_log2, qf);
+        if (next < items) load_q<D>(qn, q, base(next), S, H, row(next));
+      } else {
+        if (next < items) load_q<D>(qn, q, base(next), S, H, row(next));
+        consume<D, kLse, kBias>(q, o, lse, nullptr, nullptr, base(i),
+                                (size_t)(i / nqb) * S, S, H, row(i), ring,
+                                full, empty, it, tiles, scale_log2, qf);
+      }
     }
   }
 }
 
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+ws_kernel(const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+          float* __restrict__ lse, int B, int S, int NH, float scale_log2) {
+  walk<D, kLse, false>(tk, tv, q, o, lse, nullptr, nullptr, B, S, NH,
+                       scale_log2);
+}
+
+// mha_packed_relpos: gate (B, NH, S) and rel (NH, 2S - 1), f32
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+ws_relpos_kernel(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __nv_bfloat16* __restrict__ q,
+                 __nv_bfloat16* __restrict__ o, const float* __restrict__ gate,
+                 const float* __restrict__ rel, int B, int S, int NH,
+                 float scale_log2) {
+  walk<D, false, true>(tk, tv, q, o, nullptr, gate, rel, B, S, NH,
+                       scale_log2);
+}
+
 // ------------------------------------------------------------------ launch
+// The kernels: the plain walk, its lse epilogue, the relative-position bias
+enum Kind { kPlain, kWithLse, kRelpos };
+
+template <Kind kKind, int D>
+const void* kernel_of() {
+  if constexpr (kKind == kRelpos)
+    return (const void*)ws_relpos_kernel<D>;
+  else
+    return (const void*)ws_kernel<D, kKind == kWithLse>;
+}
+
 // The instance for D, with the threads and dynamic shared memory it needs;
 // nullptr for a D it is not compiled for. These numbers are
 // ops/attention.py:launch_geometry's.
-template <bool kLse>
+template <Kind kKind>
 const void* instance(int D, int* threads, int* smem) {
   *threads = kThreads;
   if (D == 64) {
     *smem = Ring<64>::kBytes;
-    return (const void*)ws_kernel<64, kLse>;
+    return kernel_of<kKind, 64>();
   }
   if (D == 32) {
     *smem = Ring<32>::kBytes;
-    return (const void*)ws_kernel<32, kLse>;
+    return kernel_of<kKind, 32>();
   }
   return nullptr;
 }
 
-template <bool kLse>
+template <Kind kKind>
 const void* prepared(int D, int threads, int smem) {
   int need_threads = 0, need_smem = 0;
-  const void* kern = instance<kLse>(D, &need_threads, &need_smem);
+  const void* kern = instance<kKind>(D, &need_threads, &need_smem);
   if (kern == nullptr || threads != need_threads || smem < need_smem)
     return nullptr;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -421,26 +528,31 @@ const void* prepared(int D, int threads, int smem) {
   return kern;
 }
 
-template <bool kLse>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int NH, int D, int gx, int gy, int gz, int threads,
-           int smem, void* stream) {
-  const void* kern = prepared<kLse>(D, threads, smem);
+// extra: the lse buffer (kWithLse; nullptr for kPlain), or the gate and
+// rel buffers (kRelpos)
+template <Kind kKind>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const void* extra, const void* rel, int B, int S, int NH, int D,
+           int gx, int gy, int gz, int threads, int smem, void* stream) {
+  const void* kern = prepared<kKind>(D, threads, smem);
   CUtensorMap tk, tv;
   if (kern == nullptr || gy != 1 || gz != 1 ||
       !tensor_map(&tk, k, B, S, NH * D, D, kKeys) ||
       !tensor_map(&tv, v, B, S, NH * D, D, kKeys))
     return (int)cudaErrorInvalidValue;
   float scale_log2 = kLog2e / sqrtf((float)D);
-  void* args[] = {&tk, &tv, &q, &o, &lse, &B, &S, &NH, &scale_log2};
-  cudaLaunchKernel(kern, dim3(gx), dim3(threads), args, smem,
+  void* plain[] = {&tk, &tv, &q, &o, &extra, &B, &S, &NH, &scale_log2};
+  void* relpos[] = {&tk, &tv, &q, &o, &extra, &rel, &B, &S, &NH,
+                    &scale_log2};
+  cudaLaunchKernel(kern, dim3(gx), dim3(threads),
+                   kKind == kRelpos ? relpos : plain, smem,
                    (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-template <bool kLse>
+template <Kind kKind>
 int occupancy(int D, int threads, int smem) {
-  const void* kern = prepared<kLse>(D, threads, smem);
+  const void* kern = prepared<kKind>(D, threads, smem);
   if (kern == nullptr) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t err =
@@ -464,8 +576,8 @@ int occupancy(int D, int threads, int smem) {
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
                       int threads, int smem, void* stream) {                 \
-    return launch<false>(q, k, v, o, nullptr, B, S, NH, D, gx, gy, gz,      \
-                         threads, smem, stream);                             \
+    return launch<kPlain>(q, k, v, o, nullptr, nullptr, B, S, NH, D, gx, gy, \
+                          gz, threads, smem, stream);                        \
   }
 
 WS_ENTRY(mha_packed_bf16)
@@ -478,20 +590,33 @@ extern "C" int mha_packed_lse_bf16(const void* q, const void* k,
                                    int S, int NH, int D, int gx, int gy,
                                    int gz, int threads, int smem,
                                    void* stream) {
-  return launch<true>(q, k, v, o, lse, B, S, NH, D, gx, gy, gz, threads,
-                      smem, stream);
+  return launch<kWithLse>(q, k, v, o, lse, nullptr, B, S, NH, D, gx, gy, gz,
+                          threads, smem, stream);
+}
+
+// gate: a contiguous (B, NH, S) f32 buffer, rel a contiguous (NH, 2S - 1)
+// f32 buffer (rel[h, j - i + S - 1] for query i and key j)
+extern "C" int mha_packed_relpos_bf16(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const void* gate, const void* rel,
+                                      int B, int S, int NH, int D, int gx,
+                                      int gy, int gz, int threads, int smem,
+                                      void* stream) {
+  return launch<kRelpos>(q, k, v, o, gate, rel, B, S, NH, D, gx, gy, gz,
+                         threads, smem, stream);
 }
 
 // The CTAs of an instance that fit on one SM at (threads, smem), as
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them; a negative
 // cudaError_t on failure.
-#define WS_OCCUPANCY(name, kLse)                      \
+#define WS_OCCUPANCY(name, kKind)                     \
   extern "C" int name(int D, int threads, int smem) { \
-    return occupancy<kLse>(D, threads, smem);         \
+    return occupancy<kKind>(D, threads, smem);        \
   }
 
-WS_OCCUPANCY(mha_packed_occupancy_bf16, false)
-WS_OCCUPANCY(mha_packed_lse_occupancy_bf16, true)
-WS_OCCUPANCY(mha_occupancy_bf16, false)
-WS_OCCUPANCY(mha_pairs_occupancy_bf16, false)
-WS_OCCUPANCY(mha_qblock_occupancy_bf16, false)
+WS_OCCUPANCY(mha_packed_occupancy_bf16, kPlain)
+WS_OCCUPANCY(mha_packed_lse_occupancy_bf16, kWithLse)
+WS_OCCUPANCY(mha_occupancy_bf16, kPlain)
+WS_OCCUPANCY(mha_pairs_occupancy_bf16, kPlain)
+WS_OCCUPANCY(mha_qblock_occupancy_bf16, kPlain)
+WS_OCCUPANCY(mha_packed_relpos_occupancy_bf16, kRelpos)

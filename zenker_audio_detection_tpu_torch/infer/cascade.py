@@ -20,6 +20,12 @@ and the stage-2 selection), `cascade.stage2` and `cascade.fetch` (when a
 window is left to run), `cascade.summary` (`gate_and_summarize`).
 `run_patient` adds one `cascade.summary` for the patient's JSON.
 
+A stage is an AST (`models.ast`) or BEATs (`models.beats`): the engine
+picks each stage's model module once, when it is built
+(`models.module_for`), and computes one front end for both, so the two
+stages must share it (`ops.fbank.FrontEnd`: the window type and the audio
+scale). int8 and the raw-frame cache take AST stages only.
+
 Numerical contract: per-window probabilities equal the JAX engine's at the
 stated tolerances; the gating/summary math on top is replicated exactly
 (including the reference quirk that summary swallow counts use raw argmax
@@ -38,7 +44,9 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from .. import models
 from ..models import ast as ast_mod
+from ..models import beats as beats_mod
 from ..ops import fbank as F
 from ..parallel import mesh as pmesh
 from ..utils.profiling import span
@@ -63,7 +71,7 @@ class StageSpec:
     equivalent: weights travel with their feature-extractor stats)."""
 
     params: Any
-    config: ast_mod.ASTConfig
+    config: ast_mod.ASTConfig | beats_mod.BEATsConfig
     mean: float
     std: float
     label_order: tuple[str, str]
@@ -93,6 +101,7 @@ class CascadeConfig:
     # with per-channel weight and per-token activation quantization
     # (models/ast.py:quantize_params). Probabilities shift O(1e-2):
     # recalibrate the gate thresholds on validation data when enabled.
+    # AST stages only.
     int8: bool = False
 
 
@@ -135,12 +144,30 @@ class TwoStageEngine:
             raise ValueError(f"attention_impl must be one of "
                              f"{ast_mod.ATTENTION_IMPLS}, got "
                              f"{config.attention_impl!r}")
+        # each stage's model module, picked once
+        self._models = {k: models.module_for(s.config)
+                        for k, s in ((1, stage1), (2, stage2))}
+        fronts = {m.FRONT_END for m in self._models.values()}
+        if len(fronts) > 1:
+            raise ValueError(
+                "the two stages need one front end (window type and audio "
+                f"scale), got {self._models[1].FRONT_END} for stage 1 and "
+                f"{self._models[2].FRONT_END} for stage 2: an AST stage and "
+                "a BEATs stage cannot share an engine")
+        self.front_end = fronts.pop()
+        if config.int8 and not all(hasattr(m, "quantize_params")
+                                   for m in self._models.values()):
+            raise ValueError("int8 takes AST stages only "
+                             "(models/ast.py:quantize_params), not BEATs")
+        if config.cache_dir is not None and self.front_end != F.FrontEnd():
+            raise ValueError("the raw-frame cache keys the AST front end "
+                             "only; run BEATs stages without cache_dir")
         self.device = resolve_device(device)
         if config.int8:
-            stage1 = dataclasses.replace(
-                stage1, params=ast_mod.quantize_params(stage1.params))
-            stage2 = dataclasses.replace(
-                stage2, params=ast_mod.quantize_params(stage2.params))
+            stage1 = dataclasses.replace(stage1, params=self._models[1]
+                                         .quantize_params(stage1.params))
+            stage2 = dataclasses.replace(stage2, params=self._models[2]
+                                         .quantize_params(stage2.params))
         self.stage1 = stage1
         self.stage2 = stage2
         self.config = config
@@ -167,10 +194,10 @@ class TwoStageEngine:
         # Frame reuse is exact only when window starts land on the 10 ms
         # frame grid; otherwise each window is featurized from its samples.
         self._frame_reuse = (hop % F.HOP_LENGTH == 0)
-        self._params1 = ast_mod.cast_params(stage1.params, config.dtype,
-                                            self.device)
-        self._params2 = ast_mod.cast_params(stage2.params, config.dtype,
-                                            self.device)
+        self._params1 = self._models[1].cast_params(stage1.params,
+                                                    config.dtype, self.device)
+        self._params2 = self._models[2].cast_params(stage2.params,
+                                                    config.dtype, self.device)
         if mesh is not None:
             pmesh.replicate(self._params1, mesh)
             pmesh.replicate(self._params2, mesh)
@@ -199,22 +226,22 @@ class TwoStageEngine:
         else:
             offs = torch.arange(self._win, device=self.device)
             raw = F.logmel_frames(device_buf[starts[:, None] + offs[None, :]],
-                                  fpw)
+                                  fpw, front_end=self.front_end)
         return self._classify(stage, raw)
 
     def _classify(self, stage: int, raw: torch.Tensor) -> torch.Tensor:
         """Softmax probabilities (C, 2) of one stage on (C, frames, 128)
         raw log-mel windows: pad-then-normalize (HF order: pad rows become
-        (0 - mean) / (2 std)), the AST, the softmax. The offline chunks and
-        the streaming ring (infer/streaming.py) share it."""
+        (0 - mean) / (2 std)), the stage's model, the softmax. The offline
+        chunks and the streaming ring (infer/streaming.py) share it."""
         spec = self.stage1 if stage == 1 else self.stage2
         params = self._params1 if stage == 1 else self._params2
         mean, denom = self._norm[stage]
         raw = nnf.pad(raw, (0, 0, 0, spec.config.max_length - raw.shape[-2]))
         feats = (raw - mean) / denom
-        logits = ast_mod.forward(params, feats, spec.config,
-                                 dtype=self.config.dtype,
-                                 attention_impl=self.config.attention_impl)
+        logits = self._models[stage].forward(
+            params, feats, spec.config, dtype=self.config.dtype,
+            attention_impl=self.config.attention_impl)
         return torch.softmax(logits, dim=-1)
 
     def _gate_indices(self, s1_probs: np.ndarray) -> np.ndarray:
@@ -317,7 +344,8 @@ class TwoStageEngine:
         m = min(len(audio), padded_len)
         buf[:m] = audio[:m]
         frames = F.logmel_frames(torch.from_numpy(buf).to(self.device),
-                                 F.num_frames(padded_len))
+                                 F.num_frames(padded_len),
+                                 front_end=self.front_end)
         if use_cache and (self.mesh is None or pmesh.is_main(self.mesh)):
             fcache.save_frames(path, frames[:n_true_frames].cpu().numpy(),
                                cfg.window_sec, cfg.hop_sec, SAMPLING_RATE,

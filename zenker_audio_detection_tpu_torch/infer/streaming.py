@@ -16,10 +16,11 @@ offline engine (`infer/cascade.py:TwoStageEngine`).
 - **Pow2 window buckets** (floor 8): a batch of windows is padded to the
   next power of two, as offline tail chunks are, so the kernels see a
   bounded set of shapes.
-- **Same numerics as offline.** The frames are `ops.fbank.logmel_frames`,
-  and the stage body is the engine's own `_classify` (pad-then-normalize,
-  the AST with the engine's committed params, dtype, attention route and
-  int8 leaves, the softmax); the gate is the engine's `_gate_indices`.
+- **Same numerics as offline.** The frames are `ops.fbank.logmel_frames`
+  with the engine's front end, and the stage body is the engine's own
+  `_classify` (pad-then-normalize, the stage's model (AST or BEATs) with
+  the engine's committed params, dtype, attention route and int8 leaves,
+  the softmax); the gate is the engine's `_gate_indices`.
   After `flush()`, `stage1_probs()`/`stage2_probs()` equal
   `TwoStageEngine.window_probs` on the concatenated audio.
 
@@ -126,7 +127,7 @@ class StreamingCascade:
         """`block` log-mel frames of a (block + 2) * HOP_LENGTH sample span
         (the layout `logmel_frames` frames by hop slices), on the device."""
         return F.logmel_frames(torch.from_numpy(span).to(self.engine.device),
-                               block)
+                               block, front_end=self.engine.front_end)
 
     def _update(self, new: torch.Tensor, start: int, n_valid: int) -> None:
         """Write the first `n_valid` rows of `new` into the ring at

@@ -55,12 +55,14 @@ import torch
 import torch.nn.functional as nnf
 
 from ..ops import attention as attn_ops
+from ..ops import fbank as F
 from ..utils import prng
 from ..utils.precision import full_f32
 from ..utils.profiling import span
 
 Params = dict[str, Any]
 ATTENTION_IMPLS = ("kernel", "torch")
+FRONT_END = F.FrontEnd()  # ASTFeatureExtractor
 REMAT_POLICIES = ("full", "dots_no_batch")
 # the encoder dense layers `quantize_params` turns into int8
 INT8_DENSE = ("q", "k", "v", "attn_out", "fc1", "fc2")

@@ -386,6 +386,75 @@ def to_hf_state_dict(params: Params) -> dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
+# BEATs: the public `BEATs.py` state dict
+# --------------------------------------------------------------------------
+
+
+def fold_weight_norm(g, v) -> np.ndarray:
+    """`nn.utils.weight_norm(conv, dim=2)`'s kernel g v / ||v||, the norm
+    of v taken over every axis but the kernel's position axis (axis 2)."""
+    g, v = _np(g).astype(np.float64), _np(v).astype(np.float64)
+    norm = np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
+    return (g * v / norm).astype(np.float32)
+
+
+def beats_params_from_state_dict(sd: Mapping[str, Any],
+                                 config) -> Params:
+    """The published BEATs checkpoint's `model` state dict (`BEATs.py`,
+    `backbone.py` names) -> `models.beats` params: `nn.Linear` weights
+    transposed to (in, out) and stacked over layers, the position
+    convolution's weight norm folded (`fold_weight_norm`), layer 0's
+    `relative_attention_bias` as the shared table, `grep_a` (1, NH, 1, 1)
+    as (NH,) per layer, the `predictor` as `head.dense`. Keys the port
+    does not read (other layers' views of the shared table) are ignored;
+    a missing key raises KeyError."""
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(_np(x)))
+
+    def linear(name):
+        return {"kernel": _np(sd[f"{name}.weight"]).T,
+                "bias": _np(sd[f"{name}.bias"])}
+
+    def ln(name):
+        return {"scale": _np(sd[f"{name}.weight"]),
+                "bias": _np(sd[f"{name}.bias"])}
+
+    layer_keys = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                  "v": "self_attn.v_proj", "attn_out": "self_attn.out_proj",
+                  "grep": "self_attn.grep_linear",
+                  "ln1": "self_attn_layer_norm", "fc1": "fc1", "fc2": "fc2",
+                  "ln2": "final_layer_norm"}
+    layers = []
+    for i in range(config.encoder_layers):
+        pre = f"encoder.layers.{i}."
+        layer = {name: (ln if name.startswith("ln") else linear)(pre + key)
+                 for name, key in layer_keys.items()}
+        layer["grep_a"] = _np(sd[pre + "self_attn.grep_a"]).reshape(-1)
+        layers.append(layer)
+    encoder = {name: ({k: t(np.stack([lay[name][k] for lay in layers]))
+                       for k in layers[0][name]}
+                      if isinstance(layers[0][name], dict)
+                      else t(np.stack([lay[name] for lay in layers])))
+               for name in layers[0]}
+    proj, head = linear("post_extract_proj"), linear("predictor")
+    return {
+        "patch_embed": {"kernel": t(sd["patch_embedding.weight"])},
+        "ln_patch": {k: t(x) for k, x in ln("layer_norm").items()},
+        "proj": {k: t(x) for k, x in proj.items()},
+        "pos_conv": {
+            "kernel": t(fold_weight_norm(sd["encoder.pos_conv.0.weight_g"],
+                                         sd["encoder.pos_conv.0.weight_v"])),
+            "bias": t(sd["encoder.pos_conv.0.bias"])},
+        "ln_pos": {k: t(x) for k, x in ln("encoder.layer_norm").items()},
+        "rel_bias": t(sd["encoder.layers.0.self_attn.relative_attention_bias"
+                         ".weight"]),
+        "encoder": encoder,
+        "head": {"dense": {k: t(x) for k, x in head.items()}},
+    }
+
+
+# --------------------------------------------------------------------------
 # Directory-level load/save (the reference's `fold{k}/best/` contract)
 # --------------------------------------------------------------------------
 

@@ -61,7 +61,11 @@ _ENTRY_POINTS = {
     "attention_pipelined": _walks(
         [f"{fn}_{dtype}" for fn in ("mha_batched_heads", "mha_fused")
          for dtype in _DTYPES] + [f"{fn}_f32" for fn in _SAME_AS_PACKED]),
-    "attention_ws": _walks([f"{fn}_bf16" for fn in _SAME_AS_PACKED]),
+    "attention_ws": {
+        **_walks([f"{fn}_bf16" for fn in _SAME_AS_PACKED]),
+        # BEATs's attention: q, k, v, o, gate and rel
+        "mha_packed_relpos_bf16": (6, 9, True),
+        "mha_packed_relpos_occupancy_bf16": (0, 3, False)},
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -10,6 +10,11 @@ Pallas kernel there:
   (`_attn_kernel`, `_attn_kernel_batched`, `_attn_kernel_qblock`,
   `_attn_kernel_fused`).
 
+`mha_packed_relpos` is `mha_packed` with BEATs's gated relative-position
+bias added to the scores (`models/beats.py`); no Pallas kernel has its
+function, and the bf16 walk of `csrc/attention_ws.cu` computes it without
+writing the (S, S) bias.
+
 `mha_packed_trainable` is `mha_packed` under autograd, the counterpart of
 the JAX custom VJP of that name (whose backward is XLA): the forward is
 `mha_packed_lse` (`mha_packed`'s kernel that also keeps each row's
@@ -80,6 +85,9 @@ _WS_TILE = re.compile(r"^constexpr int (kKeys|kConsumers|kStages) = (\d+);",
 # shape of attention_ws.cu's (`bwd_tile`); bwd_dkdv's stages also hold the
 # lse and delta of their 64 queries
 _BWD = ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv")
+# csrc/attention_ws.cu: BEATs's attention, bf16 only, on mha_packed's
+# geometry
+_RELPOS = "mha_packed_relpos"
 _BWD_TILE = re.compile(
     r"^constexpr int (kDqConsumers|kDkdvConsumers|kStages) = (\d+);",
     re.MULTILINE)
@@ -273,7 +281,8 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
     """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
     card's SM count, which sizes the persistent grid of `mha_packed`,
     `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
-    `mha_batched_heads` and the bf16 backward kernels; `tile` is the shape
+    `mha_batched_heads`, `mha_packed_relpos` (`mha_packed`'s bf16 walk) and
+    the bf16 backward kernels; `tile` is the shape
     of a variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the source's
     own by default. Query blocks are counted with `cdiv`, so the
     last, ragged one is launched too. `mha_pairs` takes an even NH: the JAX
@@ -284,6 +293,11 @@ def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
     if kind in _BWD:
         grid, rows, threads, smem, ctas = _bwd(kind, B, S, NH, D, itemsize,
                                                sms)
+    elif kind == _RELPOS:
+        if itemsize != 2:
+            raise ValueError(f"{kind} is compiled for bf16 only")
+        grid, rows, threads, smem, ctas = _pipelined("mha_packed", B, S, NH,
+                                                     D, itemsize, sms, tile)
     elif kind in _PIPELINED:
         _check_block_q(block_q)
         grid, rows, threads, smem, ctas = _pipelined(kind, B, S, NH, D,
@@ -404,10 +418,13 @@ def _occupancy(source: str, kind: str, itemsize: int, D: int) -> int:
 def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
     """The CTAs of `kind`'s kernel (a kind of `_PIPELINED`: `mha_packed`,
     `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
-    `mha_batched_heads` or `mha_fused`, of the dtype of `itemsize` bytes,
+    `mha_batched_heads` or `mha_fused`, or the bf16 `mha_packed_relpos`, of
+    the dtype of `itemsize` bytes,
     head width D) that fit on one SM of the current card at `launch_geometry`'s threads and shared
     memory, as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them.
     Builds the kernels if needed; raises on a CUDA error."""
+    if kind == _RELPOS:
+        return _occupancy("attention_ws", kind, itemsize, D)
     if kind not in _PIPELINED:
         raise ValueError(f"no pipelined attention kernel named {kind!r}")
     return _occupancy(_source(kind, itemsize), kind, itemsize, D)
@@ -477,6 +494,78 @@ def mha_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H = q.shape
     out = _launch("mha_pairs", q, k, v, B, S, num_heads, H // num_heads)
     mha_pairs.launches += 1
+    return out
+
+
+def relpos_bias(gate: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    """The (B, NH, S, S) f32 bias gate[b, h, i] * rel[h, j - i + S - 1] of
+    query i and key j that `mha_packed_relpos` adds to the scores."""
+    S = gate.shape[-1]
+    pos = torch.arange(S, device=rel.device)
+    index = pos[None, :] - pos[:, None] + (S - 1)
+    return gate.float()[..., None] * rel.float()[:, index][None]
+
+
+def mha_packed_relpos_reference(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, gate: torch.Tensor,
+                                rel: torch.Tensor,
+                                num_heads: int) -> torch.Tensor:
+    """Plain version of `mha_packed_relpos`: `mha_packed_reference` with
+    `relpos_bias(gate, rel)` added to the f32 scores q k^T / sqrt(D) before
+    the f32 softmax; p is cast to the input dtype before the PV product,
+    which accumulates in f32. It holds the (B, NH, S, S) bias and scores."""
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(qh.shape[-1])
+    scores += relpos_bias(gate, rel)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    return _packed(torch.matmul(probs.float(), vh)).to(q.dtype)
+
+
+def _check_relpos(q: torch.Tensor, gate: torch.Tensor, rel: torch.Tensor,
+                  num_heads: int) -> None:
+    B, S, _ = q.shape
+    for name, x, shape in (("gate", gate, (B, num_heads, S)),
+                           ("rel", rel, (num_heads, 2 * S - 1))):
+        if (tuple(x.shape) != shape or x.dtype != torch.float32
+                or x.device != q.device):
+            raise ValueError(f"mha_packed_relpos: {name} must be {shape} "
+                             f"float32 on {q.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+
+
+def mha_packed_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      gate: torch.Tensor, rel: torch.Tensor, *,
+                      num_heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + gate[b, h, i] rel[h, j - i + S - 1]) v per
+    head on packed (B, S, H) tensors: BEATs's attention with its gated
+    relative-position bias (`models/beats.py`). gate is (B, NH, S) f32, one
+    value per query row and head; rel (NH, 2S - 1) f32, the bias of head h
+    at offset j - i in rel[h, j - i + S - 1].
+
+    CUDA tensors (bf16, contiguous, D in KERNEL_HEAD_DIMS) go to
+    `ws_relpos_kernel` in `csrc/attention_ws.cu`, `mha_packed`'s walk that
+    adds the bias to each f32 score tile in registers; f32 CUDA tensors are
+    refused. CPU tensors go to `mha_packed_relpos_reference`. Each kernel
+    launch adds one to `mha_packed_relpos.launches`."""
+    _check(q, k, v, "mha_packed_relpos", 3)
+    _check_heads(q, num_heads)
+    _check_relpos(q, gate, rel, num_heads)
+    if q.device.type == "cpu":
+        return mha_packed_relpos_reference(q, k, v, gate, rel, num_heads)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"mha_packed_relpos's kernel takes bf16 q, k, v, "
+                        f"got {q.dtype}")
+    B, S, H = q.shape
+    D = H // num_heads
+    _check_kernel(q, k, v, num_heads)
+    _check_layout(4, gate=gate, rel=rel)
+    geo = launch_geometry(_RELPOS, B, S, num_heads, D, 2,
+                          sms=sm_count(q.device))
+    out = torch.empty_like(q)
+    _run("attention_ws", "mha_packed_relpos_bf16", (q, k, v, out, gate, rel),
+         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    mha_packed_relpos.launches += 1
     return out
 
 
@@ -845,6 +934,6 @@ def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 for _entry in (mha_packed, mha_pairs, mha, mha_batched_heads, mha_qblock,
                mha_fused, mha_packed_lse, mha_packed_bwd_dq,
-               mha_packed_bwd_dkdv):
+               mha_packed_bwd_dkdv, mha_packed_relpos):
     _entry.launches = 0
 del _entry

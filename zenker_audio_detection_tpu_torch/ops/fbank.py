@@ -17,6 +17,11 @@ the lost mantissa bits into O(0.5) errors in low-power mel bins.
 For long recordings, sliding windows on the 160-sample frame grid share
 frames: `logmel_frames` computes the file-level frame matrix once and
 `window_features_from_frames` gathers each window's block of frames.
+
+A model module names its front end (`FrontEnd`, its `FRONT_END`): the
+default is the extractor's above (the AST's); another window type
+("povey": the symmetric Hann window to the power 0.85) and a factor on
+the [-1, 1] audio give Kaldi's other defaults.
 """
 
 from __future__ import annotations
@@ -92,6 +97,28 @@ def hann_window_symmetric(length: int = FRAME_LENGTH) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (length - 1))
 
 
+WINDOW_TYPES = ("hanning", "povey")
+
+
+def frame_window(window_type: str, length: int = FRAME_LENGTH) -> np.ndarray:
+    """Kaldi's window of `window_type`: "hanning" the symmetric Hann
+    window, "povey" that window to the power 0.85."""
+    if window_type not in WINDOW_TYPES:
+        raise ValueError(f"window_type must be one of {WINDOW_TYPES}, got "
+                         f"{window_type!r}")
+    hann = hann_window_symmetric(length)
+    return hann if window_type == "hanning" else hann ** 0.85
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontEnd:
+    """How a model's log-mel frames are computed: Kaldi's window type and
+    the factor on [-1, 1] audio before framing (int16 PCM is x / 32768)."""
+
+    window_type: str = "hanning"
+    waveform_scale: float = 1.0
+
+
 @functools.lru_cache(maxsize=4)
 def _dft_matrices(frame_length: int = FRAME_LENGTH, fft_length: int = FFT_LENGTH):
     """Real/imag DFT matrices (frame_length, num_bins) for the matmul DFT.
@@ -108,18 +135,18 @@ def _dft_matrices(frame_length: int = FRAME_LENGTH, fft_length: int = FFT_LENGTH
 
 
 @functools.lru_cache(maxsize=4)
-def _host_constants():
-    window = hann_window_symmetric().astype(np.float32)
+def _host_constants(window_type: str = "hanning"):
+    window = frame_window(window_type).astype(np.float32)
     mel = mel_filter_bank_kaldi().astype(np.float32)
     return window, mel
 
 
 @functools.lru_cache(maxsize=8)
-def _device_constants(device: torch.device):
+def _device_constants(device: torch.device, window_type: str = "hanning"):
     """(window, mel bank, DFT cos, DFT sin) as f32 tensors on `device`,
     copied there once: a host-to-device copy per call would wait for the
     device's queued work."""
-    window, mel = _host_constants()
+    window, mel = _host_constants(window_type)
     cos_m, sin_m = _dft_matrices()
     return tuple(torch.from_numpy(a).to(device)
                  for a in (window, mel, cos_m, sin_m))
@@ -178,7 +205,8 @@ def _preprocess_frames(frames: torch.Tensor, window: torch.Tensor) -> torch.Tens
 
 
 def logmel_frames(waveform: torch.Tensor, n_frames: int, *,
-                  use_matmul_dft: bool = True) -> torch.Tensor:
+                  use_matmul_dft: bool = True,
+                  front_end: FrontEnd = FrontEnd()) -> torch.Tensor:
     """Log-mel features for all frames of `waveform`.
 
     Args:
@@ -187,6 +215,9 @@ def logmel_frames(waveform: torch.Tensor, n_frames: int, *,
       n_frames: frame count (use `num_frames(num_samples)`).
       use_matmul_dft: the DFT as two f32 matmuls (the default, the engine's
         path) instead of `torch.fft.rfft`; both run on the tensor's device.
+      front_end: the model's window type and audio scale; int16 PCM is
+        scaled by `waveform_scale` / 32768 in one product (none where that
+        is 1, as BEATs takes the PCM values themselves).
 
     Returns:
       (..., n_frames, NUM_MEL_BINS) float32 log-mel features (unnormalized,
@@ -196,9 +227,14 @@ def logmel_frames(waveform: torch.Tensor, n_frames: int, *,
         raise ValueError(
             f"waveform too short for even one {FRAME_LENGTH}-sample frame "
             f"(got n_frames={n_frames}); minimum is {FRAME_LENGTH} samples")
-    window, mel, cos_m, sin_m = _device_constants(waveform.device)
+    window, mel, cos_m, sin_m = _device_constants(waveform.device,
+                                                  front_end.window_type)
+    scale = front_end.waveform_scale
     if waveform.dtype == torch.int16:
-        waveform = waveform.float() * (1.0 / 32768.0)
+        scale = scale / 32768.0
+        waveform = waveform.float()
+    if scale != 1.0:
+        waveform = waveform * scale
     frames = _preprocess_frames(_frames_by_hop_slices(waveform, n_frames),
                                 window)
     with full_f32():

@@ -205,6 +205,7 @@ def stacked_forward(params, feats: torch.Tensor, model_cfg, *, dtype,
     autograd recording) each vmapped block runs under
     `torch.utils.checkpoint`, as `models.ast.encode(remat=True)` runs each
     block: only the (N, B, S, H) block inputs are kept for the backward."""
+    steps.require_ast(model_cfg)
     block = vmap(functools.partial(ast_mod._block, config=model_cfg,
                                    impl="torch"))
     if remat and torch.is_grad_enabled():

@@ -114,6 +114,16 @@ def sharded_value_and_grad(logits_fn: Callable, loss: Callable, params,
     return (loss_val.detach(), aux), optim.tree_from_items(zip(paths, grads))
 
 
+def require_ast(config) -> None:
+    """Training takes the AST alone: a BEATs configuration (or any other)
+    is refused here, not deep inside the forward."""
+    if not isinstance(config, ast_mod.ASTConfig):
+        raise TypeError(
+            f"training takes an ASTConfig, got {type(config).__name__}: "
+            "BEATs runs as an inference stage of the cascade only (its "
+            "attention kernel has no backward)")
+
+
 def _divides(n: int, mesh) -> bool:
     return mesh is not None and n % pmesh.mesh_size(mesh) == 0
 
@@ -145,6 +155,7 @@ def make_value_and_grad(config: ast_mod.ASTConfig, loss: Callable,
     (`sharded_value_and_grad`), else (a tail batch) the whole batch.
     `attention_impl` None takes the route `train_attention_impl` gives for
     the labels' device; "torch" or "kernel" is run as named."""
+    require_ast(config)
 
     def forward(params, feats, impl):
         return ast_mod.forward(params, feats, config, dtype=dtype,
@@ -176,6 +187,7 @@ def make_loss_fn(config: ast_mod.ASTConfig, loss: Callable,
                  remat_policy: str = "full"):
     """loss(logits, labels) -> scalar, lifted to a params-first objective
     that returns (loss, logits)."""
+    require_ast(config)
 
     def loss_fn(params, feats, labels):
         logits = ast_mod.forward(params, feats, config, dtype=dtype,
@@ -257,6 +269,7 @@ def make_eval_step(config: ast_mod.ASTConfig, dtype=torch.bfloat16,
     `mesh`, feats is the global chunk on every rank (on the host or on
     `device`): a chunk whose rows divide over the mesh is sharded and its
     logits gathered, another runs whole; every rank gets every row."""
+    require_ast(config)
 
     def forward(params, feats):
         with torch.no_grad():
