@@ -63,9 +63,21 @@ fails the run loudly:
      mha_packed on the same q, k, v, the plain version and
      scaled_dot_product_attention with the bias as its mask, against
      `bound` and the operations' bound 4 B NH S^2 D at the bf16 peak;
+  3e. the AST trunk's elementwise epilogues (csrc/trunk_epilogue.cu:
+     qkv_bias, residual_layer_norm with and without a product, bias_gelu)
+     against their plain versions, the ATen composition they replace, at
+     128 x 1214 and 8 x 146 rows of 768 (3072 for bias_gelu) in bf16 and
+     f32, on the first rows of buffers whose NaN tails must stay NaN: the
+     bias and residual adds bit for bit, LayerNorm and GELU within one
+     bf16 ulp (f32: EPILOGUE_F32_TOL); each timed at 128 x 1214 rows bf16
+     beside its bytes bound and the plain version; the trunk (`encode`)
+     at batch 128, S = 1214 and 146, fused (inference mode) and composed
+     (grad enabled), with the fused route's peak memory;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
-     counter zeroed just before and read just after; the gated engine's
+     counters zeroed just before and read just after (mha_packed 12 a
+     stage-chunk run; the AST trunk's epilogues 12 qkv_bias, 12 bias_gelu
+     and 25 residual_layer_norm a stage-chunk run); the gated engine's
      stage-1 head calibrated on the pooled features (calibrate_gate: about
      a third of the windows gated, at most GATE_NEAR_MAX of them within
      ENGINE_TOL of the gate's boundary, both printed and checked); the
@@ -76,9 +88,9 @@ fails the run loudly:
   4b. BEATs engine: TwoStageEngine with two full-size BEATs stages
      (BEATsConfig(num_labels=2), S = 512) at batch 128, bf16, "all" mode,
      on the same audio, the counts zeroed just before and read just after
-     (12 mha_packed_relpos launches per stage-chunk, no other kernel), its
-     window probabilities against the same engine with
-     attention_impl="torch" within ENGINE_TOL;
+     (12 mha_packed_relpos launches per stage-chunk, no other kernel and
+     no epilogue of the AST trunk), its window probabilities against the
+     same engine with attention_impl="torch" within ENGINE_TOL;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
      directories;
   6. training: mha_packed_trainable alone at (16, 1214, 768) f32 and bf16:
@@ -348,6 +360,20 @@ RELPOS_CASES = ((3, 300, 4, 32), (1, 146, 12, 64), (2, 1214, 12, 64),
 # adds one f32 rounding to each score and makes p peakier, so outputs reach
 # |v| ~ 4 and an absolute measure would scale with them: four bf16 ulps
 RELPOS_TOL = 2.0 ** -6
+# the AST trunk's epilogues (ops/epilogue.py, csrc/trunk_epilogue.cu): the
+# rows of a stage-chunk at S = 1214 and at S = 146 with 8 windows (the
+# streaming bucket), the widths (hidden, fc1), and how far the kernels'
+# LayerNorm and GELU may lie from ATen's: one bf16 ulp (the order of the
+# f32 reduction, FMA contraction) of max(|plain|, 2^-8): below 2^-8 a
+# LayerNorm output is a cancellation of gamma rstd (x - mean) against
+# beta, where the two reductions' f32 means (about 1e-7 apart) are many
+# ulps of the small result (up to 54 of them at 128 x 1214 rows), and the
+# floor's ulp, 2^-15, still bounds it; in f32, where nothing rounds to
+# bf16, 1e-5 of max(|plain|, 1). The bias and residual adds are bitwise.
+EPILOGUE_ROWS = (128 * 1214, 8 * 146)
+EPILOGUE_WIDTHS = (768, 3072)
+EPILOGUE_F32_TOL = 1e-5
+EPILOGUES = ("qkv_bias", "bias_gelu", "residual_layer_norm")
 # the BEATs stages' feature statistics (BEATs.preprocess's fbank mean and
 # std)
 BEATS_MEAN, BEATS_STD = 15.41663, 6.55582
@@ -455,7 +481,11 @@ def source_of(name: str) -> str:
     return WS_SOURCE if name in WS_KINDS else PIPELINED_SOURCE
 
 
-def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+def median_ms(fn, warmup: int = 2, iters: int = 10, calls: int = 1) -> float:
+    """The median over `iters` samples of the device time of `calls` calls
+    of fn in a row, per call. With calls > 1 the host enqueues the later
+    calls while the first runs, so a short kernel's time leaves out most of
+    its wrapper's host path, which a single call's sample holds."""
     import torch
 
     for _ in range(warmup):
@@ -466,10 +496,11 @@ def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -969,6 +1000,219 @@ def phase_relpos(A, torch) -> dict:
             4.0 * B * NH * S * S * D / PEAK_BF16_FLOPS * 1e3}
 
 
+def bf16_ulps_apart(torch, got, want) -> float:
+    """The largest |got - want| in bf16 ulps of max(|want|, 2^-8)."""
+    _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -8))
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def require_epilogue(torch, what: str, got, want,
+                     exact: bool) -> tuple[float, float]:
+    """got against want: bit for bit where `exact`, else within one bf16
+    ulp of max(|want|, 2^-8) (f32: EPILOGUE_F32_TOL of max(|want|, 1));
+    returns the largest absolute difference and the largest in bf16 ulps
+    (0 in f32)."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or "
+                             f"non-finite values")
+    if exact:
+        require_equal(what, got, want)
+        return 0.0, 0.0
+    abs_err = (got.float() - want.float()).abs().max().item()
+    ulps = 0.0
+    if got.dtype == torch.bfloat16:
+        ulps = err = bf16_ulps_apart(torch, got, want)
+        ok = 1
+        log(f"[epilogue] {what}: {err:.3g} bf16 ulps of max(|plain|, 2^-8)"
+            f" at most (at most 1); {abs_err:.3g} absolute")
+    else:
+        err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        ok = EPILOGUE_F32_TOL
+        log(f"[epilogue] {what}: {err:.3g} of max(|plain|, 1) at most "
+            f"(at most {ok}); {abs_err:.3g} absolute")
+    if not err <= ok:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{err}")
+    return float(abs_err), float(ulps)
+
+
+def zero_epilogue_counts() -> None:
+    from zenker_audio_detection_tpu_torch.ops import epilogue as epi
+
+    for name in EPILOGUES:
+        getattr(epi, name).launches = 0
+
+
+def epilogue_counts() -> dict:
+    from zenker_audio_detection_tpu_torch.ops import epilogue as epi
+
+    return {name: getattr(epi, name).launches for name in EPILOGUES}
+
+
+def expected_epilogue_counts(layers: int, stage_chunks: int) -> dict:
+    """The epilogue launches of `stage_chunks` fused trunk forwards of
+    `layers` blocks: qkv_bias and bias_gelu once a block,
+    residual_layer_norm twice a block and once on the embeddings."""
+    return {"qkv_bias": layers * stage_chunks,
+            "bias_gelu": layers * stage_chunks,
+            "residual_layer_norm": (2 * layers + 1) * stage_chunks}
+
+
+def phase_epilogue(C, ast_mod, torch) -> list:
+    """The AST trunk's epilogues (csrc/trunk_epilogue.cu) against their
+    plain versions, the ATen composition they replace, at EPILOGUE_ROWS in
+    bf16 and f32, each on the first rows of buffers whose tails hold NaN
+    (which must stay NaN; a kernel that reads past its rows turns its
+    outputs NaN): qkv_bias and residual_layer_norm's x' bit for bit, its h
+    (with and without a product) and bias_gelu's within one bf16 ulp. Then
+    each timed at 128 x 1214 rows bf16 in rounds of 10 calls beside its
+    bytes bound at PEAK_BYTES_PER_S and the plain version (the
+    residual_layer_norm record holds its launch without a product under
+    `no_product_*`); and the trunk (`encode`) at batch 128 fused (inference
+    mode) and composed (grad enabled), at S = 1214 and 146. The records'
+    `launches` are phase 4's, on the main path."""
+    from zenker_audio_detection_tpu_torch.ops import epilogue as epi
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    H, I = EPILOGUE_WIDTHS
+
+    def act(rows, width, dtype, pad=5):
+        buf = torch.randn(rows + pad, width, device="cuda", generator=gen)
+        buf = buf.to(dtype)
+        buf[rows:] = float("nan")
+        return buf, buf[:rows]
+
+    def vec(width, dtype, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(width, device="cuda",
+                                            generator=gen)).to(dtype)
+
+    def tail_intact(what, buf, rows):
+        if not bool(buf[rows:].isnan().all()):
+            raise AssertionError(f"{what} wrote past its rows")
+
+    # per kernel: the largest absolute difference and bf16 ulps
+    errs = {name: (0.0, 0.0) for name in EPILOGUES}
+
+    def keep(name, err):
+        errs[name] = tuple(map(max, errs[name], err))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in EPILOGUE_ROWS:
+            tag = f"{str(dtype).split('.')[-1]} ({rows}, {H})"
+            bufs, acts = zip(*(act(rows, H, dtype) for _ in range(3)))
+            biases = [vec(H, dtype) for _ in range(3)]
+            want = epi.qkv_bias_reference(*acts, *biases)
+            got = epi.qkv_bias(*acts, *biases)
+            torch.cuda.synchronize()
+            for name, g, w, buf in zip("qkv", got, want, bufs):
+                require_epilogue(torch, f"qkv_bias {name} {tag}", g, w, True)
+                tail_intact("qkv_bias", buf, rows)
+            scale, shift = vec(H, torch.float32, 0.1, 1.0), vec(
+                H, torch.float32, 0.1)
+            _, x = act(rows, H, dtype)
+            _, p = act(rows, H, dtype)
+            want_x, want_h = epi.residual_layer_norm_reference(
+                x, scale, shift, 1e-12, p, biases[0])
+            got_x, got_h = epi.residual_layer_norm(x, scale, shift, 1e-12, p,
+                                                   biases[0])
+            require_epilogue(torch, f"residual_layer_norm x' {tag}", got_x,
+                             want_x, True)
+            keep("residual_layer_norm", require_epilogue(
+                torch, f"residual_layer_norm h {tag}", got_h, want_h, False))
+            _, h = epi.residual_layer_norm(x, scale, shift, 1e-12)
+            keep("residual_layer_norm", require_epilogue(
+                torch, f"residual_layer_norm without a product {tag}", h,
+                epi.residual_layer_norm_reference(x, scale, shift, 1e-12)[1],
+                False))
+            buf, p = act(rows, I, dtype)
+            b = vec(I, dtype)
+            want = epi.bias_gelu_reference(p, b)
+            got = epi.bias_gelu(p, b)
+            keep("bias_gelu", require_epilogue(
+                torch, f"bias_gelu ({rows}, {I})", got, want, False))
+            tail_intact("bias_gelu", buf, rows)
+            del bufs, acts, want, got, x, p, buf
+
+    # times at a stage-chunk of S = 1214, bf16
+    rows, dtype = EPILOGUE_ROWS[0], torch.bfloat16
+    q, k, v = (act(rows, H, dtype, 0)[1] for _ in range(3))
+    bq, bk, bv = (vec(H, dtype) for _ in range(3))
+    x, p = act(rows, H, dtype, 0)[1], act(rows, H, dtype, 0)[1]
+    fc1 = act(rows, I, dtype, 0)[1]
+    b1 = vec(I, dtype)
+    scale, shift = vec(H, torch.float32, 0.1, 1.0), vec(H, torch.float32, 0.1)
+    item = 2
+    cases = {  # name -> (kernel, plain version, bytes moved, width)
+        "qkv_bias": (lambda: epi.qkv_bias(q, k, v, bq, bk, bv),
+                     lambda: epi.qkv_bias_reference(q, k, v, bq, bk, bv),
+                     6 * rows * H * item, H),
+        "residual_layer_norm": (
+            lambda: epi.residual_layer_norm(x, scale, shift, 1e-12, p, bq),
+            lambda: epi.residual_layer_norm_reference(x, scale, shift, 1e-12,
+                                                      p, bq),
+            4 * rows * H * item, H),
+        "no_product": (
+            lambda: epi.residual_layer_norm(x, scale, shift, 1e-12),
+            lambda: epi.residual_layer_norm_reference(x, scale, shift, 1e-12),
+            2 * rows * H * item, H),
+        "bias_gelu": (lambda: epi.bias_gelu(fc1, b1),
+                      lambda: epi.bias_gelu_reference(fc1, b1),
+                      2 * rows * I * item, I)}
+    times = {}
+    for name, (kernel, plain, nbytes, width) in cases.items():
+        ms = median_ms(kernel, calls=10)
+        plain_ms = median_ms(plain, calls=10)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        log(f"[epilogue] {name} at ({rows}, {width}) bf16: kernel {ms:.4f} "
+            f"ms ({100 * bound_ms / ms:.1f} % of the bound), plain (the ATen "
+            f"composition) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    records = []
+    for name in EPILOGUES:
+        abs_err, ulps = errs[name]
+        record = {"name": name, "route": "cuda",
+                  "source": "zenker_audio_detection_tpu_torch/csrc/"
+                            "trunk_epilogue.cu",
+                  "replaces": None, "launches": None, "max_abs_err": abs_err,
+                  "max_bf16_ulps": ulps, **times[name], "bound_by": "bytes",
+                  "library_ms": None}
+        if name == "residual_layer_norm":
+            record.update({f"no_product_{k}": t
+                           for k, t in times["no_product"].items()})
+        records.append(record)
+    del q, k, v, x, p, fc1
+
+    # the trunk, fused against composed, at batch 128
+    for frames in (1024, 128):
+        cfg = ast_mod.ASTConfig(max_length=frames)
+        params = ast_mod.cast_params(
+            ast_mod.init_params(np.random.default_rng(1), cfg),
+            torch.bfloat16, "cuda")
+        feats = torch.randn(128, frames, cfg.num_mel_bins, device="cuda",
+                            generator=gen)
+        kw = dict(dtype=torch.bfloat16, attention_impl="kernel")
+
+        def fused():
+            with torch.inference_mode():
+                return ast_mod.encode(params, feats, cfg, **kw)
+
+        composed = median_ms(lambda: ast_mod.encode(params, feats, cfg, **kw),
+                             iters=5)
+        torch.cuda.reset_peak_memory_stats()
+        fused_ms = median_ms(fused, iters=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        err = (fused().float() - ast_mod.encode(params, feats, cfg, **kw)
+               .float()).abs().max().item()
+        log(f"[epilogue] trunk at (128, {cfg.seq_length}) bf16: fused "
+            f"{fused_ms:.3f} ms (peak {peak:.2f} GB), composed "
+            f"{composed:.3f} ms; hidden states max abs difference "
+            f"{err:.3g}")
+        del params, feats
+    return records
+
+
 def seeded_audio(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(16000 * seconds)) / 16000.0
@@ -1107,6 +1351,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
 
     # ---- the main path: counts zeroed just before, read just after ----
     zero_counts(A)
+    zero_epilogue_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p1_all, p2_all = engine_all.window_probs(audio)
@@ -1116,17 +1361,24 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     gated_s = time.perf_counter() - t0
     launches = A.mha_packed.launches
     others = {k: n for k, n in counts(A).items() if k != "mha_packed"}
+    epilogues = epilogue_counts()
     # ------------------------------------------------------------------
 
     n_gated = len(engine_gated._gate_indices(p1_g))
     layers = ast_mod.ASTConfig().num_hidden_layers
-    expected = layers * (2 * chunks + chunks + -(-n_gated // batch))
+    stage_chunks = 2 * chunks + chunks + -(-n_gated // batch)
+    expected = layers * stage_chunks
     log(f"[engine] mha_packed launches on the main path: {launches} "
         f"(expected {expected} = {layers} layers x chunks run; {n_gated} of "
         f"{W} windows gated); the other entry points: {others}")
     if launches != expected or any(others.values()):
         raise AssertionError(f"launch count {launches} != {expected} or "
                              f"{others} not all 0")
+    want = expected_epilogue_counts(layers, stage_chunks)
+    log(f"[engine] epilogue launches on the main path: {epilogues} "
+        f"(expected {want} for {stage_chunks} stage-chunks run)")
+    if epilogues != want:
+        raise AssertionError(f"epilogue launches {epilogues} != {want}")
     for p_, what in ((p1_all, "all/stage1"), (p2_all, "all/stage2"),
                      (p1_g, "gated/stage1"), (p2_g, "gated/stage2")):
         check_probs(p_, W, what)
@@ -1157,7 +1409,7 @@ def phase_engine(A, C, ast_mod, torch, name: str) -> int:
     compare_gated("phase 4, gated engine, kernel vs torch attention",
                   engine_gated, (p1_g, p2_g), torch_gated.window_probs(audio),
                   ENGINE_TOL)
-    return launches
+    return launches, epilogues
 
 
 def phase_beats_engine(A, C, torch) -> int:
@@ -1192,12 +1444,17 @@ def phase_beats_engine(A, C, torch) -> int:
 
     # ---- the main path: counts zeroed just before, read just after ----
     zero_counts(A)
+    zero_epilogue_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p1, p2 = engines["kernel"].window_probs(audio)
     secs = time.perf_counter() - t0
     launches = counts(A)
+    epilogues = epilogue_counts()
     # ------------------------------------------------------------------
+    if any(epilogues.values()):
+        raise AssertionError(f"the BEATs engine launched the AST trunk's "
+                             f"epilogues: {epilogues}")
     expected = {**{k: 0 for k in KERNELS},
                 "mha_packed_relpos": cfg.encoder_layers * 2 * chunks}
     log(f"[beats] launches on the BEATs engine's path: {launches} (expected "
@@ -3799,9 +4056,12 @@ def main() -> int:
 
     record = phase_kernel_vs_plain(A)
     relpos = phase_relpos(A, torch)
+    epilogue_records = phase_epilogue(C, ast_mod, torch)
     records = [record, *phase_entry_points(A, torch), phase_pairs(A, torch),
-               relpos]
-    record["launches"] = phase_engine(A, C, ast_mod, torch, name)
+               relpos, *epilogue_records]
+    record["launches"], epilogues = phase_engine(A, C, ast_mod, torch, name)
+    for r in epilogue_records:
+        r["launches"] = epilogues[r["name"]]
     relpos["launches"] = phase_beats_engine(A, C, torch)
     phase_small_f32(A, ast_mod, torch)
     phase_fbank(torch)

@@ -17,6 +17,7 @@ import torch
 from zenker_audio_detection_tpu.ops import attention as JA
 from zenker_audio_detection_tpu_torch.ops import _cuda
 from zenker_audio_detection_tpu_torch.ops import attention as A
+from zenker_audio_detection_tpu_torch.ops import epilogue
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -108,9 +109,15 @@ def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
     before = {name: _cuda.library_path(name) for name in names}
     assert before["attention_ws"] == lib  # the same bytes, the same key
     header = tmp_path / "flash_common.cuh"
+    including = [name for name in names
+                 if header in _cuda._sources(name)]
+    # the attention sources include it, the trunk's epilogues do not
+    assert including == ["attention_bwd", "attention_pipelined",
+                         "attention_ws"]
     header.write_text(header.read_text() + "// edited\n")
     after = {name: _cuda.library_path(name) for name in names}
-    assert all(after[name] != before[name] for name in names)
+    assert [name for name in names if after[name] != before[name]] == \
+        including
     source = tmp_path / "attention_bwd.cu"
     source.write_text(source.read_text() + "// edited\n")
     again = {name: _cuda.library_path(name) for name in names}
@@ -150,8 +157,8 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
         return Props()
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", props)
-    monkeypatch.setattr(A, "_run", lambda source, fn, tensors, ints, device:
-                        calls.append((source, fn, len(tensors), ints)))
+    monkeypatch.setattr(_cuda, "run", lambda source, fn, tensors, ints,
+                        device: calls.append((source, fn, len(tensors), ints)))
     A.sm_count.cache_clear()
     try:
         B, S, NH, D = 3, 300, 4, 32
@@ -266,6 +273,11 @@ def test_every_bound_entry_point_is_called():
     # BEATs's attention: bf16 only, on the walk's source
     called |= {("attention_ws", f"mha_packed_relpos{part}_bf16")
                for part in ("", "_occupancy")}
+    # the AST trunk's elementwise epilogues (ops/epilogue.py), both dtypes
+    called |= {(epilogue.SOURCE, f"{name}_{suffix}")
+               for name in ("qkv_bias", "bias_gelu", "residual_layer_norm",
+                            "layer_norm")
+               for suffix in ("bf16", "f32")}
     bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
              for name in names}
     assert bound == called

@@ -139,6 +139,30 @@ def test_checkpoint_roundtrip_with_scalar_leaf(tmp_path):
     assert o2["count"] == 7 and type(o2["count"]) is int
 
 
+def test_loaded_trees_keep_the_template_order(tmp_path):
+    """A checkpoint comes back in the template's key order, not the
+    file's: `optim.global_norm` sums the leaves in that order, so a resumed
+    run in another order clipped its gradients by a norm an ulp apart from
+    the straight run's and left bitwise resume."""
+    params, opt_state, tx = _small_state()
+    # the template's keys in reverse, at every level
+    def reverse(tree):
+        return {k: reverse(v) if isinstance(v, dict) else v
+                for k, v in reversed(list(tree.items()))}
+
+    params = reverse(params)
+    opt_state = dict(opt_state, mu=reverse(opt_state["mu"]),
+                     nu=reverse(opt_state["nu"]))
+    ck = str(tmp_path / "ck")
+    L.save_checkpoint(ck, params, opt_state, _full_state(1))
+    p2, o2, _ = L.load_checkpoint(ck, params, tx.init(params))
+    for want, got in ((params, p2), (opt_state["mu"], o2["mu"]),
+                      (opt_state["nu"], o2["nu"])):
+        assert [k for k, _ in optim.tree_items(got)] == \
+            [k for k, _ in optim.tree_items(want)]
+        assert torch.equal(optim.global_norm(got), optim.global_norm(want))
+
+
 def test_checkpoint_layout_mismatch_raises(tmp_path):
     params, opt_state, tx = _small_state()
     ck = tmp_path / "ck"

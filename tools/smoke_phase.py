@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Runs phases of a checkout's chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/smoke_phase.py [--phases relpos engine beats_engine
+    python3 tools/smoke_phase.py [--phases relpos epilogue engine
+                                   beats_engine
                                    train_alone train loop serving audio
                                    parallel workflow mesh]
 
@@ -9,7 +10,10 @@ Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
 chip_smoke.py's main would but without the phases before them:
 `relpos` (phase 3d: mha_packed_relpos against its plain version, timed
-beside mha_packed), `engine` (phase 4: the full-width engine in both
+beside mha_packed), `epilogue` (phase 3e: the AST trunk's elementwise
+epilogues against their plain versions, timed beside them and their bytes
+bound, the trunk fused and composed, an engine's launches per
+stage-chunk), `engine` (phase 4: the full-width engine in both
 modes, its calibrated gate, against the "torch" attention),
 `beats_engine` (phase 4b: two BEATs stages on the engine, their
 mha_packed_relpos launches counted), `train_alone`
@@ -40,8 +44,8 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path.cwd()))
-PHASES = ("relpos", "engine", "beats_engine", "train_alone", "train",
-          "loop", "serving", "audio", "parallel", "workflow", "mesh")
+PHASES = ("relpos", "epilogue", "engine", "beats_engine", "train_alone",
+          "train", "loop", "serving", "audio", "parallel", "workflow", "mesh")
 
 
 def main() -> int:
@@ -70,6 +74,8 @@ def main() -> int:
         t0 = time.perf_counter()
         if phase == "relpos":
             print(chip_smoke.phase_relpos(A, torch), flush=True)
+        elif phase == "epilogue":
+            print(chip_smoke.phase_epilogue(C, ast_mod, torch), flush=True)
         elif phase == "beats_engine":
             chip_smoke.phase_beats_engine(A, C, torch)
         elif phase == "engine":

@@ -20,8 +20,14 @@ Numerics follow the JAX package:
   * a dense layer rounds the f32-accumulated product to the compute dtype
     and then adds the bias in that dtype (`_dense`), as the JAX package does.
     `F.linear` would add the bias inside the GEMM, before the rounding: one
-    bf16 rounding apart per layer. The port keeps the JAX order, at the cost
-    of one extra elementwise pass over each dense output;
+    bf16 rounding apart per layer. The port keeps the JAX order. When
+    autograd records nothing and the dense leaves are not int8
+    (`fused_trunk`), the bias add shares a pass with the work that follows
+    it (`ops.epilogue`: q/k/v's biases in one launch; the residual add and
+    the next LayerNorm; fc1's GELU), each rounding where the composition
+    rounds; otherwise (training, int8) `_block` composes PyTorch
+    operations, at the cost of a pass of its own for each bias add,
+    residual add, and f32 LayerNorm or GELU with its casts;
   * logits are f32;
   * the forward runs inside `full_f32()`, so f32 matmuls and the f32 patch
     convolution never use TF32. The backward runs after that context has
@@ -55,6 +61,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..ops import attention as attn_ops
+from ..ops import epilogue as epi
 from ..ops import fbank as F
 from ..utils import prng
 from ..utils.precision import full_f32
@@ -363,19 +370,21 @@ def _dense_int8(x, p):
     return (y + p["bias"].float()).to(x.dtype)
 
 
-def _attention(x, lp, config: ASTConfig, impl: str):
+def _attend(q, k, v, config: ASTConfig, impl: str):
     nh = config.num_attention_heads
-    q = _dense(x, lp["q"])
-    k = _dense(x, lp["k"])
-    v = _dense(x, lp["v"])
     with span("ast.attention"):
         if impl == "kernel":
             # Hopper kernels forward and backward, as the JAX "pallas" route
             # calls its custom VJP
-            ctx = attn_ops.mha_packed_trainable(q, k, v, nh)
-        else:
-            ctx = attn_ops.mha_packed_reference(q, k, v, nh)
-    return _dense(ctx, lp["attn_out"])
+            return attn_ops.mha_packed_trainable(q, k, v, nh)
+        return attn_ops.mha_packed_reference(q, k, v, nh)
+
+
+def _attention(x, lp, config: ASTConfig, impl: str):
+    q = _dense(x, lp["q"])
+    k = _dense(x, lp["k"])
+    v = _dense(x, lp["v"])
+    return _dense(_attend(q, k, v, config, impl), lp["attn_out"])
 
 
 def _block(x, lp, config: ASTConfig, impl: str):
@@ -387,6 +396,58 @@ def _block(x, lp, config: ASTConfig, impl: str):
     h = _dense(h, lp["fc1"])
     h = nnf.gelu(h.float(), approximate="none").to(x.dtype)
     return x + _dense(h, lp["fc2"])
+
+
+def fused_trunk(params: Params) -> bool:
+    """Whether `encode` runs the blocks on `ops.epilogue` (`_fused_blocks`):
+    when autograd records nothing (`torch.no_grad`, `torch.inference_mode`)
+    and the encoder's dense leaves are not int8. A recorded forward keeps
+    `_block`'s composition, which autograd differentiates; an int8 leaf
+    keeps `_dense_int8`'s own f32 rescale."""
+    enc = params["encoder"]
+    return (not torch.is_grad_enabled()
+            and not any("kernel_int8" in enc[name] for name in INT8_DENSE))
+
+
+def _fused_blocks(params: Params, x: torch.Tensor, config: ASTConfig,
+                  impl: str) -> torch.Tensor:
+    """The blocks and the final LayerNorm as `_block` and `final_norm`
+    compute them, with the elementwise work between the GEMMs in
+    `ops.epilogue`'s passes: per block the q, k and v products,
+    `qkv_bias`, attention, attn_out's product, `residual_layer_norm` (the
+    residual add and ln2), fc1's product, `bias_gelu`, fc2's product and
+    `residual_layer_norm` (the residual add and the next block's ln1, or
+    `ln_final` after the last). The first block's ln1 is
+    `residual_layer_norm` on the embeddings. Every rounding is the
+    composition's, in its order."""
+    enc = params["encoder"]
+    eps = config.layer_norm_eps
+    layers = enc["ln1"]["scale"].shape[0]
+
+    def norm(group, layer=None):
+        leaves = [group[key] if layer is None else group[key][layer]
+                  for key in ("scale", "bias")]
+        return [leaf.float() for leaf in leaves]
+
+    x, h = epi.residual_layer_norm(x, *norm(enc["ln1"], 0), eps)
+    for layer in range(layers):
+        dense = {name: (enc[name]["kernel"][layer].to(x.dtype),
+                        enc[name]["bias"][layer].to(x.dtype))
+                 for name in INT8_DENSE}
+        q, k, v = epi.qkv_bias(*(torch.matmul(h, dense[name][0])
+                                 for name in ("q", "k", "v")),
+                               *(dense[name][1] for name in ("q", "k", "v")))
+        w, b = dense["attn_out"]
+        ctx = _attend(q, k, v, config, impl)
+        x, h = epi.residual_layer_norm(x, *norm(enc["ln2"], layer), eps,
+                                       torch.matmul(ctx, w), b)
+        w, b = dense["fc1"]
+        g = epi.bias_gelu(torch.matmul(h, w), b)
+        w, b = dense["fc2"]
+        after = (norm(enc["ln1"], layer + 1) if layer + 1 < layers
+                 else norm(params["ln_final"]))
+        x, h = epi.residual_layer_norm(x, *after, eps, torch.matmul(g, w), b)
+    return h
 
 
 def patch_embed(params: Params, input_values: torch.Tensor,
@@ -444,6 +505,8 @@ def encode(params: Params, input_values: torch.Tensor, config: ASTConfig,
            attention_impl: str = "torch") -> torch.Tensor:
     """Full trunk: features -> final-LN'd hidden states (B, S, H).
 
+    When `fused_trunk(params)` holds, the blocks run `_fused_blocks`, else
+    `_block` after `_block` and `final_norm`: the same numbers.
     remat_policy (when remat=True and autograd records):
       "full": save each block's input only and recompute the block in the
         backward; without it the per-layer f32 score tensors are kept;
@@ -461,6 +524,8 @@ def encode(params: Params, input_values: torch.Tensor, config: ASTConfig,
         block = _checkpointed(block, remat_policy)
     with full_f32():
         x = embed(params, input_values, config, dtype)
+        if fused_trunk(params):
+            return _fused_blocks(params, x, config, attention_impl)
         enc = params["encoder"]
         for layer in range(enc["ln1"]["scale"].shape[0]):
             lp = {name: {key: leaf[layer] for key, leaf in group.items()}

@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points of each source: name -> (pointer arguments, int
-# arguments, whether a stream follows). A kernel's entry point takes
-# (void*..., int..., void* stream); every entry point returns an int, a
-# cudaError_t for a launch.
+# arguments, whether a stream follows[, float arguments]). A kernel's entry
+# point takes (void*..., int..., float..., void* stream); every entry point
+# returns an int, a cudaError_t for a launch.
 _DTYPES = ("bf16", "f32")
 
 
@@ -66,6 +66,14 @@ _ENTRY_POINTS = {
         # BEATs's attention: q, k, v, o, gate and rel
         "mha_packed_relpos_bf16": (6, 9, True),
         "mha_packed_relpos_occupancy_bf16": (0, 3, False)},
+    # the AST trunk's elementwise epilogues (ops/epilogue.py): rows, width
+    # and LayerNorm's eps
+    "trunk_epilogue": {
+        **{f"{name}_{dtype}": spec for dtype in _DTYPES
+           for name, spec in (("qkv_bias", (6, 2, True)),
+                              ("bias_gelu", (2, 2, True)),
+                              ("residual_layer_norm", (7, 2, True, 1)),
+                              ("layer_norm", (4, 2, True, 1)))}},
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -140,9 +148,26 @@ def build_all() -> dict[str, float]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = ctypes.CDLL(str(build(name)[0]))
-    for fn_name, (n_ptr, n_int, stream) in _ENTRY_POINTS[name].items():
+    for fn_name, (n_ptr, n_int, stream, *n_float) in \
+            _ENTRY_POINTS[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * sum(n_float)
                        + [ctypes.c_void_p] * stream)
         fn.restype = ctypes.c_int
     return lib
+
+
+def run(source: str, fn_name: str, tensors, ints, device) -> None:
+    """Calls C entry point `fn_name` of `csrc/<source>.cu` with the tensors'
+    device pointers, the ints (and floats) and the current stream of CUDA
+    `device`; raises if the launch failed."""
+    import torch
+
+    fn = getattr(load(source), fn_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(x.data_ptr() for x in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
+                           f"{err}")

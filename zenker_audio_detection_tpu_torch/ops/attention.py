@@ -365,19 +365,6 @@ def _source(kind: str, itemsize: int) -> str:
             else "attention_pipelined")
 
 
-def _run(source: str, fn_name: str, tensors, ints, device) -> None:
-    """Calls C entry point `fn_name` of `csrc/<source>.cu` with the tensors'
-    device pointers, the ints and the current stream; raises if the launch
-    failed."""
-    fn = getattr(_cuda.load(source), fn_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(x.data_ptr() for x in tensors), *ints, stream)
-    if err:
-        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
-                           f"{err}")
-
-
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """The SMs of CUDA `device`, read once per device; they size the
@@ -396,8 +383,9 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           sm_count(q.device))
     out = torch.empty_like(q)
     tensors = (q, k, v, out) if lse is None else (q, k, v, out, lse)
-    _run(_source(kind, q.element_size()), f"{kind}_{_suffix(q)}", tensors,
-         (B, S, NH, D, *geo.grid, geo.threads, geo.smem), q.device)
+    _cuda.run(_source(kind, q.element_size()), f"{kind}_{_suffix(q)}",
+              tensors, (B, S, NH, D, *geo.grid, geo.threads, geo.smem),
+              q.device)
     return out
 
 
@@ -563,8 +551,10 @@ def mha_packed_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     geo = launch_geometry(_RELPOS, B, S, num_heads, D, 2,
                           sms=sm_count(q.device))
     out = torch.empty_like(q)
-    _run("attention_ws", "mha_packed_relpos_bf16", (q, k, v, out, gate, rel),
-         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    _cuda.run("attention_ws", "mha_packed_relpos_bf16",
+              (q, k, v, out, gate, rel),
+              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
+              q.device)
     mha_packed_relpos.launches += 1
     return out
 
@@ -778,9 +768,10 @@ def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     delta = torch.empty(B, num_heads, S, dtype=torch.float32,
                         device=q.device)
-    _run("attention_bwd", f"mha_packed_bwd_dq_{_suffix(q)}",
-         (q, k, v, o, lse, g, dq, delta),
-         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    _cuda.run("attention_bwd", f"mha_packed_bwd_dq_{_suffix(q)}",
+              (q, k, v, o, lse, g, dq, delta),
+              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
+              q.device)
     mha_packed_bwd_dq.launches += 1
     return dq, delta
 
@@ -807,9 +798,10 @@ def mha_packed_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     geo = launch_geometry("mha_packed_bwd_dkdv", B, S, num_heads, D,
                           q.element_size(), sms=sm_count(q.device))
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _run("attention_bwd", f"mha_packed_bwd_dkdv_{_suffix(q)}",
-         (q, k, v, g, lse, delta, dk, dv),
-         (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem), q.device)
+    _cuda.run("attention_bwd", f"mha_packed_bwd_dkdv_{_suffix(q)}",
+              (q, k, v, g, lse, delta, dk, dv),
+              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
+              q.device)
     mha_packed_bwd_dkdv.launches += 1
     return dk, dv
 

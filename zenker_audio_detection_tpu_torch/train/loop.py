@@ -950,21 +950,24 @@ def _flat_params(params) -> dict[str, np.ndarray]:
 
 
 def _params_from_flat(flat: dict, template):
-    """Inverse of `_flat_params`: tensors of the template's structure,
-    dtypes and devices, from the dotted JAX-layout arrays in `flat`."""
+    """Inverse of `_flat_params`: tensors of the template's structure, key
+    order, dtypes and devices, from the dotted JAX-layout arrays in `flat`.
+    The order matters: `optim.global_norm` sums the leaves in it, so a
+    resumed run whose trees were in another order would clip its gradients
+    by a norm an ulp apart from the straight run's."""
     names = sorted(_flat_params(template))
     if sorted(flat) != names:
         raise ValueError(f"parameter names differ from the model's: "
                          f"{sorted(set(flat) ^ set(names))[:5]}")
     tree = convert.params_from_jax(convert._unflatten_tree(flat))
 
-    def like(new, old):
+    def like(old, new):
         if new.shape != old.shape:
             raise ValueError(f"a parameter of shape {tuple(new.shape)} where "
                              f"the model has {tuple(old.shape)}")
         return new.to(dtype=old.dtype, device=old.device)
 
-    return optim.tree_map(like, tree, template)
+    return optim.tree_map(like, template, tree)
 
 
 def _adam_leaves(opt_state) -> list[np.ndarray]:
