@@ -317,11 +317,6 @@ ENTRY_POINTS = {  # name -> the Pallas function it replaces
 }
 # (S, block_q) of tests/test_pallas_attention.py:74-80
 QBLOCK_CASES = ((64, 64), (300, 128), (100, 256), (1280, 96), (200, 96))
-# the kernels of the persistent walks and of the cp.async ring and wgmma
-# body: mha_packed, its lse forward, mha, mha_pairs and mha_qblock (one
-# function on one memory), mha_batched_heads, and mha_fused
-PIPELINED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
-             "mha_qblock", "mha_batched_heads", "mha_fused")
 # of ENTRY_POINTS: the ones checked on the walk's hard cases and timed in
 # f32 and at B=1
 PIPELINED_ENTRIES = ("mha", "mha_qblock", "mha_batched_heads", "mha_fused")
@@ -333,7 +328,6 @@ PIPELINED_SOURCE = ("zenker_audio_detection_tpu_torch/csrc/"
 # the bf16 mha_packed, mha_packed_lse, mha, mha_pairs and mha_qblock: the
 # warp-specialised walk (their f32 forms run PIPELINED_SOURCE)
 WS_SOURCE = "zenker_audio_detection_tpu_torch/csrc/attention_ws.cu"
-WS_KINDS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock")
 # their own cases against reference_mha (mha_packed: packed, num_heads=NH),
 # (B, S, NH, D) and dtypes: B=1 has fewer work items than SMs, B=3 a count
 # that is no multiple of the grid, NH=3 leaves mha_fused's last pair one
@@ -476,9 +470,10 @@ def mha_as_packed(A, x):
         x[0].shape)
 
 
-def source_of(name: str) -> str:
+def source_of(A, name: str) -> str:
     """The csrc/ source of `name`'s bf16 kernel."""
-    return WS_SOURCE if name in WS_KINDS else PIPELINED_SOURCE
+    return (f"zenker_audio_detection_tpu_torch/csrc/"
+            f"{A.KERNEL_OF[name, 'bf16'].source}.cu")
 
 
 def median_ms(fn, warmup: int = 2, iters: int = 10, calls: int = 1) -> float:
@@ -729,7 +724,7 @@ def phase_entry_points(A, torch) -> list:
             f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['text']})")
         records.append({
-            "name": name, "route": "cuda", "source": source_of(name),
+            "name": name, "route": "cuda", "source": source_of(A, name),
             "replaces": ENTRY_POINTS[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -2169,39 +2164,32 @@ def check_instance_registers(report: str, name: str, mangled: str,
 
 
 def check_occupancy(A) -> dict:
-    """Every instance of csrc/attention_pipelined.cu and
-    csrc/attention_ws.cu (mha_packed_relpos's bf16 ones among them), and
-    the bf16 ones of csrc/attention_bwd.cu, must fit on an SM as
-    many times as launch_geometry's grid assumes (a register creep past the
-    launch bounds or more shared memory would lower it); returns
-    {name: {dtype: {D: CTAs per SM}}}."""
+    """Every compiled kernel of ops/attention.py:KERNEL_OF that reports its
+    occupancy (all but the f32 backward's) must fit on an SM as many times
+    as launch_geometry's grid assumes (a register creep past the launch
+    bounds or more shared memory would lower it); the card is asked once
+    per kernel and head width. Returns {entry point: {dtype: {D: CTAs per
+    SM}}} for every entry point that launches such a kernel."""
+    entries = {}
+    for (name, dtype), kernel in A.KERNEL_OF.items():
+        if kernel.occupancy is not None:
+            entries.setdefault(kernel, []).append((name, dtype))
     found = {}
-    for name in PIPELINED:
-        for itemsize, dtype in ((2, "bf16"), (4, "f32")):
-            for D in A.KERNEL_HEAD_DIMS:
-                geo = A.launch_geometry(name, 1, 64, 2, D, itemsize)
-                ctas = A.pipelined_occupancy(name, itemsize, D)
-                found.setdefault(name, {}).setdefault(dtype, {})[D] = ctas
-                log(f"[build] {name} {dtype} D={D}: {ctas} CTAs per SM "
-                    f"({geo.threads} threads, {geo.smem} B of shared memory; "
-                    f"the grid assumes {geo.ctas_per_sm})")
-                if ctas < geo.ctas_per_sm:
-                    raise AssertionError(
-                        f"{name} {dtype} D={D} fits {ctas} CTAs per SM, "
-                        f"fewer than the {geo.ctas_per_sm} its grid assumes")
-    for name in ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv",
-                 "mha_packed_relpos"):
+    for kernel, launched_by in entries.items():
+        name, dtype = launched_by[0]
+        itemsize = 2 if dtype == "bf16" else 4
         for D in A.KERNEL_HEAD_DIMS:
-            geo = A.launch_geometry(name, 1, 64, 2, D, 2)
-            ctas = (A.pipelined_occupancy(name, 2, D)
-                    if name == "mha_packed_relpos" else A.bwd_occupancy(name, D))
-            found.setdefault(name, {}).setdefault("bf16", {})[D] = ctas
-            log(f"[build] {name} bf16 D={D}: {ctas} CTAs per SM "
-                f"({geo.threads} threads, {geo.smem} B of shared memory; "
+            geo = A.launch_geometry(name, 1, 64, 2, D, itemsize)
+            ctas = A.occupancy(name, itemsize, D)
+            for entry, _ in launched_by:
+                found.setdefault(entry, {}).setdefault(dtype, {})[D] = ctas
+            log(f"[build] {kernel.launch} D={D} "
+                f"({', '.join(e for e, _ in launched_by)}): {ctas} CTAs per "
+                f"SM ({geo.threads} threads, {geo.smem} B of shared memory; "
                 f"the grid assumes {geo.ctas_per_sm})")
             if ctas < geo.ctas_per_sm:
                 raise AssertionError(
-                    f"{name} bf16 D={D} fits {ctas} CTAs per SM, fewer "
+                    f"{kernel.launch} D={D} fits {ctas} CTAs per SM, fewer "
                     f"than the {geo.ctas_per_sm} its grid assumes")
     return found
 

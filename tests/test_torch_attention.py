@@ -145,8 +145,8 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
     """The persistent grid is sized by the card's SM count, read from the
     device properties once per device and not on every call (checked with
     the properties and the C call stood in for). `mha`, `mha_pairs` and
-    `mha_qblock` call `mha_packed`'s kernel through entry points of their
-    own in csrc/attention_ws.cu, with the walk's int arguments."""
+    `mha_qblock` launch `mha_packed`'s kernel through its symbol in
+    csrc/attention_ws.cu, with the walk's int arguments."""
     reads, calls = [], []
 
     class Props:
@@ -175,10 +175,108 @@ def test_launch_reads_the_sm_count_once_per_device(monkeypatch, kind):
     geo = A.launch_geometry(kind, B, S, NH, D, 2, sms=7)
     # 7 SMs x ctas_per_sm CTAs, fewer than the 36 items
     assert geo.grid == (7 * geo.ctas_per_sm, 1, 1)
-    source = "attention_pipelined" if kind == "mha_batched_heads" else \
-        "attention_ws"
-    assert calls == [(source, f"{kind}_bf16", 4 if lse is None else 5,
+    source, symbol = {
+        "mha_batched_heads": ("attention_pipelined", "mha_batched_heads_bf16"),
+        "mha_packed_lse": ("attention_ws", "mha_packed_lse_bf16"),
+    }.get(kind, ("attention_ws", "mha_packed_bf16"))
+    assert calls == [(source, symbol, 4 if lse is None else 5,
                       (B, S, NH, D, *geo.grid, geo.threads, geo.smem))] * 3
+
+
+# (entry point, dtype) -> (csrc/ source, C launch symbol, geometry family)
+# of the kernel it launches: mha, mha_pairs and mha_qblock compute
+# mha_packed's function on its memory and launch its kernel, in f32
+# mha_batched_heads'
+ROUTES = {
+    **{(entry, "bf16"): ("attention_ws", "mha_packed_bf16", "ws")
+       for entry in ("mha_packed", "mha", "mha_pairs", "mha_qblock")},
+    **{(entry, "f32"): ("attention_pipelined", "mha_batched_heads_f32",
+                        "batched")
+       for entry in ("mha_packed", "mha", "mha_pairs", "mha_qblock",
+                     "mha_batched_heads")},
+    ("mha_packed_lse", "bf16"): ("attention_ws", "mha_packed_lse_bf16", "ws"),
+    ("mha_packed_lse", "f32"): ("attention_pipelined", "mha_packed_lse_f32",
+                                "batched"),
+    ("mha_packed_relpos", "bf16"): ("attention_ws", "mha_packed_relpos_bf16",
+                                    "ws"),
+    ("mha_batched_heads", "bf16"): ("attention_pipelined",
+                                    "mha_batched_heads_bf16", "batched"),
+    **{("mha_fused", dtype): ("attention_pipelined", f"mha_fused_{dtype}",
+                              "fused") for dtype in ("bf16", "f32")},
+    **{(f"mha_packed_bwd_{part}", dtype): (
+        "attention_bwd", f"mha_packed_bwd_{part}_{dtype}", "bwd")
+       for part in ("dq", "dkdv") for dtype in ("bf16", "f32")},
+}
+# an entry point of each geometry family, whose launch the others share
+_FAMILY = {"ws": ("mha_packed", 2), "batched": ("mha_batched_heads", None),
+           "fused": ("mha_fused", None)}
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that a wrapper takes its
+    kernel path (whose launch the test stands in for)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kind,dtype", sorted(ROUTES))
+def test_each_entry_point_launches_the_kernel_of_the_table(monkeypatch, kind,
+                                                           dtype):
+    """Each wrapper on the card launches the compiled kernel KERNEL_OF gives
+    it: that source and C symbol, with the int arguments of its geometry
+    family's launch, counted in its own `.launches` alone (checked with
+    `_cuda.run` and `sm_count` stood in for)."""
+    source, symbol, family = ROUTES[kind, dtype]
+    kernel = A.KERNEL_OF[kind, dtype]
+    assert set(A.KERNEL_OF) == set(ROUTES)
+    assert (kernel.source, kernel.launch, kernel.geometry) == ROUTES[kind,
+                                                                     dtype]
+    calls = []
+    monkeypatch.setattr(A, "sm_count", lambda device: 7)
+    monkeypatch.setattr(_cuda, "run", lambda source, fn, tensors, ints,
+                        device: calls.append((source, fn, len(tensors), ints)))
+    empty = torch.empty  # the lse and delta buffers, on "the card"
+    monkeypatch.setattr(torch, "empty", lambda *shape, device=None, **kw:
+                        empty(*shape, **kw))
+    B, S, NH, D = 3, 300, 4, 32
+    tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def card(*shape, dt=tdtype):
+        return torch.zeros(*shape, dtype=dt).as_subclass(_OnCard)
+
+    x, stats = card(B, S, NH * D), card(B, NH, S, dt=torch.float32)
+    heads = x.view(B, S, NH, D)
+    run = {
+        "mha_packed": lambda: A.mha_packed(x, x, x, num_heads=NH),
+        "mha_pairs": lambda: A.mha_pairs(x, x, x, num_heads=NH),
+        "mha_packed_lse": lambda: A.mha_packed_lse(x, x, x, num_heads=NH),
+        "mha_packed_relpos": lambda: A.mha_packed_relpos(
+            x, x, x, stats, card(NH, 2 * S - 1, dt=torch.float32),
+            num_heads=NH),
+        "mha_packed_bwd_dq": lambda: A.mha_packed_bwd_dq(
+            x, x, x, x, stats, x, num_heads=NH),
+        "mha_packed_bwd_dkdv": lambda: A.mha_packed_bwd_dkdv(
+            x, x, x, x, stats, stats, num_heads=NH),
+    }.get(kind, lambda: getattr(A, kind)(heads, heads, heads))
+    counted = [name for name, fn in vars(A).items()
+               if callable(fn) and hasattr(fn, "launches")]
+    before = {name: getattr(A, name).launches for name in counted}
+    run()
+    moved = {name: getattr(A, name).launches - before[name]
+             for name in counted}
+    assert moved == {name: int(name == kind) for name in counted}
+    itemsize = x.element_size()
+    geo = A.launch_geometry(kind, B, S, NH, D, itemsize, sms=7)
+    tensors = {"mha_packed_lse": 5, "mha_packed_relpos": 6,
+               "mha_packed_bwd_dq": 8, "mha_packed_bwd_dkdv": 8}.get(kind, 4)
+    assert calls == [(source, symbol, tensors,
+                      (B, S, NH, D, *geo.grid, geo.threads, geo.smem))]
+    if family in _FAMILY:
+        like, size = _FAMILY[family]
+        assert geo == A.launch_geometry(like, B, S, NH, D, size or itemsize,
+                                        sms=7)
 
 
 # `extern "C" int <name>(` written out, and the macros whose body defines
@@ -222,57 +320,49 @@ def test_every_c_entry_point_is_bound(source):
     assert _exported(text) == set(_cuda._ENTRY_POINTS[source])
 
 
-# every kind `_launch` takes
-_LAUNCHED = A._PIPELINED
+# the entry points `_launch` takes
+_LAUNCHED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock",
+             "mha_batched_heads", "mha_fused")
 
 
 @pytest.mark.parametrize("itemsize,source", [(2, "attention_ws"),
                                              (4, "attention_pipelined")])
 def test_qblock_c_names_are_bound(itemsize, source):
-    """mha_qblock launches mha_packed's instances through C names of its
-    own: `mha_qblock_bf16` in csrc/attention_ws.cu, `mha_qblock_f32` in
-    csrc/attention_pipelined.cu, each with its occupancy twin, exported and
-    bound, and counted apart from mha_packed's."""
-    suffix = "bf16" if itemsize == 2 else "f32"
-    assert A._source("mha_qblock", itemsize) == source
-    assert A._source("mha_packed", itemsize) == source
+    """mha_qblock launches mha_packed's kernel through its symbols
+    (`mha_packed_bf16`, in f32 `mha_batched_heads_f32`, and their
+    occupancy symbols), exported and bound; no C name of its own is
+    exported, so an alias coming back fails here. Its launches still count
+    apart from mha_packed's."""
+    dtype = "bf16" if itemsize == 2 else "f32"
+    kernel = A.KERNEL_OF["mha_qblock", dtype]
+    assert kernel == A.KERNEL_OF["mha_packed", dtype]
+    assert kernel.source == source
     exported = _exported((_cuda.CSRC / f"{source}.cu").read_text())
-    for name in (f"mha_qblock_{suffix}", f"mha_qblock_occupancy_{suffix}"):
+    for name in (kernel.launch, kernel.occupancy):
         assert name in exported and name in _cuda._ENTRY_POINTS[source]
-    assert _cuda._ENTRY_POINTS[source][f"mha_qblock_{suffix}"] == \
-        _cuda._ENTRY_POINTS[source][f"mha_packed_{suffix}"]
+    assert not [name for name in exported
+                if name.startswith("mha_qblock") or name == f"mha_{dtype}"]
 
 
 @pytest.mark.parametrize("itemsize,suffix", [(2, "bf16"), (4, "f32")])
 @pytest.mark.parametrize("kind", _LAUNCHED)
 def test_every_wrapper_calls_a_bound_entry_point(kind, itemsize, suffix):
-    """What a wrapper calls, f"{kind}_{dtype}" (and for the persistent and
-    pipelined kinds their occupancy twin), is exported by and bound for the
-    source `_source` names."""
-    source = A._source(kind, itemsize)
-    names = [f"{kind}_{suffix}"]
-    if kind in A._PIPELINED:
-        names.append(f"{kind}_occupancy_{suffix}")
-    exported = _exported((_cuda.CSRC / f"{source}.cu").read_text())
-    for name in names:
-        assert name in exported and name in _cuda._ENTRY_POINTS[source]
+    """What a wrapper launches, the kernel `KERNEL_OF` gives it (its launch
+    symbol and its occupancy symbol), is exported by and bound for that
+    kernel's source."""
+    kernel = A.KERNEL_OF[kind, suffix]
+    assert A.kernel_of(kind, itemsize) == kernel
+    exported = _exported((_cuda.CSRC / f"{kernel.source}.cu").read_text())
+    for name in (kernel.launch, kernel.occupancy):
+        assert name in exported and name in _cuda._ENTRY_POINTS[kernel.source]
 
 
 def test_every_bound_entry_point_is_called():
-    """Each bound C name is one a wrapper calls: no entry point is left
-    behind by a kind that moved to another source."""
-    called = {(A._source(kind, itemsize), f"{kind}{part}_{suffix}")
-              for kind in _LAUNCHED for itemsize, suffix in ((2, "bf16"),
-                                                             (4, "f32"))
-              for part in ("", "_occupancy")
-              if part == "" or kind in A._PIPELINED}
-    called |= {("attention_bwd", f"mha_packed_bwd_{part}_{suffix}")
-               for part in ("dq", "dkdv") for suffix in ("bf16", "f32")}
-    called |= {("attention_bwd", f"mha_packed_bwd_{part}_occupancy_bf16")
-               for part in ("dq", "dkdv")}
-    # BEATs's attention: bf16 only, on the walk's source
-    called |= {("attention_ws", f"mha_packed_relpos{part}_bf16")
-               for part in ("", "_occupancy")}
+    """Each bound C name is the launch or occupancy symbol of a kernel
+    `KERNEL_OF` names, or an epilogue's: no symbol is left behind by a kind
+    that moved to another kernel, and no alias of a kernel is bound."""
+    called = {(kernel.source, name) for kernel in A.KERNEL_OF.values()
+              for name in (kernel.launch, kernel.occupancy) if name}
     # the AST trunk's elementwise epilogues (ops/epilogue.py), both dtypes
     called |= {(epilogue.SOURCE, f"{name}_{suffix}")
                for name in ("qkv_bias", "bias_gelu", "residual_layer_norm",
@@ -281,6 +371,11 @@ def test_every_bound_entry_point_is_called():
     bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
              for name in names}
     assert bound == called
+    # one launch and one occupancy symbol per compiled kernel: 22 in the
+    # attention sources, the f32 backward having no occupancy symbol
+    attention = {(s, n) for s, n in bound if s.startswith("attention")}
+    assert len(attention) == 22
+    assert len({kernel.launch for kernel in A.KERNEL_OF.values()}) == 12
 
 
 def test_chip_smoke_counts_every_counted_wrapper():

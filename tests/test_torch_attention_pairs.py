@@ -101,7 +101,7 @@ def test_pairs_and_mha_take_the_packed_geometry(kind, itemsize, D, sms):
         assert geo == A.launch_geometry("mha_packed", B, S, NH, D, itemsize,
                                         sms=sms)
         assert geo.grid[1:] == (1, 1) and geo.grid[0] <= sms * geo.ctas_per_sm
-    assert A._source(kind, itemsize) == A._source("mha_packed", itemsize)
+    assert A.kernel_of(kind, itemsize) == A.kernel_of("mha_packed", itemsize)
 
 
 @pytest.mark.parametrize("S", [64, 300, 146, 1214])

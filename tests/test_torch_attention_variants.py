@@ -11,6 +11,8 @@ at these input scales the outputs are O(1).
 Also the launch geometry the kernels are given, and what the wrappers
 refuse, checked without a card."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -232,35 +234,32 @@ def test_ws_tile_is_read_from_the_source():
 
     text = (_cuda.CSRC / "attention_ws.cu").read_text()
     keys, consumers, stages = A.ws_tile()
-    assert (keys, consumers, stages) == A.parse_ws_tile(text)
+    for name, value in (("kKeys", keys), ("kConsumers", consumers),
+                        ("kStages", stages)):
+        assert re.search(rf"^constexpr int {name} = {value};", text,
+                         re.MULTILINE)
     assert keys in (64, 128) and consumers >= 1 and stages >= 2
     geo = A.launch_geometry("mha_packed", 16, 1214, 12, 64, 2)
     assert (geo.rows, geo.threads) == (64 * consumers, 128 * (consumers + 1))
-
-
-@pytest.mark.parametrize("tile", [(128, 2, 2), (64, 3, 4), (64, 2, 3)])
-def test_launch_geometry_takes_a_variant_tile(tile):
-    """A variant of csrc/attention_ws.cu (tools/packed_ws.py) gets its own
-    geometry: rows, threads, the ring and its mbarriers."""
-    keys, consumers, stages = tile
-    geo = A.launch_geometry("mha_packed_lse", 3, 300, 12, 32, 2, sms=7,
-                            tile=tile)
-    assert geo.rows == 64 * consumers
-    assert geo.threads == 128 * (consumers + 1) and geo.ctas_per_sm == 1
-    assert geo.smem == 1024 + stages * 2 * keys * 32 * 2 + 2 * stages * 8
-    assert geo.grid == (7, 1, 1)
-    # the f32 walk does not depend on it
-    assert (A.launch_geometry("mha_packed", 3, 300, 12, 32, 4, tile=tile)
-            == A.launch_geometry("mha_packed", 3, 300, 12, 32, 4))
 
 
 @pytest.mark.parametrize("text", ["", "constexpr int kKeys = 64;\n",
                                   "constexpr int kKeys = 64;\n"
                                   "constexpr int kConsumers = 2;\n"
                                   "// constexpr int kStages = 2;\n"])
-def test_parse_ws_tile_needs_all_three_constexprs(text):
-    with pytest.raises(ValueError, match="constexprs"):
-        A.parse_ws_tile(text)
+def test_tile_constexprs_must_all_be_written(tmp_path, monkeypatch, text):
+    """A source that lacks one of the constexprs the launch geometry reads
+    is refused, not read as a default."""
+    from zenker_audio_detection_tpu_torch.ops import _cuda
+
+    (tmp_path / "attention_ws.cu").write_text(text)
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    A._constexprs.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="constexprs"):
+            A.ws_tile()
+    finally:
+        A._constexprs.cache_clear()
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -310,9 +309,13 @@ def test_launch_geometry_refuses(kind, args, match):
         A.launch_geometry(kind, *args)
 
 
-def test_pipelined_occupancy_names_a_pipelined_kernel():
-    with pytest.raises(ValueError, match="no pipelined"):
-        A.pipelined_occupancy("mha_packed_bwd_dq", 2, 64)
+def test_occupancy_names_a_kernel_with_an_occupancy_symbol():
+    with pytest.raises(ValueError, match="no occupancy symbol"):
+        A.occupancy("mha_packed_bwd_dq", 4, 64)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        A.occupancy("mha_triples", 2, 64)
+    with pytest.raises(ValueError, match="bf16 only"):
+        A.occupancy("mha_packed_relpos", 4, 64)
 
 
 def test_launch_geometry_refuses_block_q_below_one():

@@ -2,7 +2,7 @@
 """How far apart equally precise training routes land, on one NVIDIA GPU.
 
     python3 tools/train_route_noise.py [--seeds 7 17 27 37 47]
-        [--routes torch torch_flash torch_reversed kernel] [--ws-variant NAME]
+        [--routes torch torch_flash torch_reversed kernel]
 
 chip_smoke.py's training phase holds the "kernel" route's losses and
 gradients to the "torch" route's at the same parameters. This tool measures how far apart routes that compute the
@@ -18,8 +18,7 @@ weights on the same batch:
                  kernels' order;
   torch_reversed the torch route on the batch in reverse order: the same
                  loss and gradients, other summation orders;
-  kernel         mha_packed_trainable (--ws-variant NAME: through variant
-                 NAME of tools/packed_ws.py).
+  kernel         mha_packed_trainable.
 
 Prints per seed and route the loss before each step and after the last,
 each loss's distance from the torch route's, the relative norm of the
@@ -86,16 +85,10 @@ def main() -> int:
                         default=[7, 17, 27, 37, 47])
     parser.add_argument("--routes", nargs="+", choices=ROUTES,
                         default=list(ROUTES))
-    parser.add_argument("--ws-variant")
     args = parser.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    if args.ws_variant:
-        sys.path.insert(0, str(Path(__file__).resolve().parent))
-        import packed_ws
-
-        packed_ws.use_variant(args.ws_variant)
     plain = A.mha_packed_reference
     cfg = ast_mod.ASTConfig()
     tx = optim.make_optimizer(**OPT)
@@ -183,7 +176,7 @@ def main() -> int:
                   flush=True)
         del params0, g0, leaves0
         torch.cuda.empty_cache()
-    print(json.dumps({"ws_variant": args.ws_variant, "results": results}))
+    print(json.dumps({"results": results}))
     return 0
 
 

@@ -97,7 +97,7 @@ constexpr int kT = 64;  // rows of a tile: queries, keys, or an f32 block
 constexpr int kThreads = 128;  // an f32 block
 
 // The bf16 walks' shapes. ops/attention.py:bwd_tile reads these three
-// lines for the launch geometry, and tools/bwd_variants.py rewrites them.
+// lines for the launch geometry.
 constexpr int kDqConsumers = 3;    // warpgroups of 64 query rows (bwd_dq)
 constexpr int kDkdvConsumers = 2;  // warpgroups of 64 keys (bwd_dkdv)
 constexpr int kStages = 4;  // tiles (two 64 x D operands each) in the ring

@@ -421,9 +421,7 @@ int occupancy(int D, int threads, int smem) {
 // launch_geometry; `stream` is a cudaStream_t. Returns the cudaError_t of
 // the launch (0 on success); an instance that does not exist, or threads or
 // shared memory other than it needs, is cudaErrorInvalidValue. The caller
-// validates shapes. f32 mha_packed, mha, mha_pairs and mha_qblock are
-// mha_batched_heads' kernel on the same memory, so their entry points launch
-// one instance.
+// validates shapes.
 #define PIPE_ENTRY(name, T, F)                                               \
   extern "C" int name(const void* q, const void* k, const void* v, void* o, \
                       int B, int S, int NH, int D, int gx, int gy, int gz,  \
@@ -432,26 +430,20 @@ int occupancy(int D, int threads, int smem) {
                                gz, threads, smem, stream);                   \
   }
 
-PIPE_ENTRY(mha_packed_f32, float, kBatched)
-PIPE_ENTRY(mha_f32, float, kBatched)
-PIPE_ENTRY(mha_pairs_f32, float, kBatched)
-PIPE_ENTRY(mha_qblock_f32, float, kBatched)
 PIPE_ENTRY(mha_batched_heads_bf16, __nv_bfloat16, kBatched)
 PIPE_ENTRY(mha_batched_heads_f32, float, kBatched)
 PIPE_ENTRY(mha_fused_bf16, __nv_bfloat16, kFused)
 PIPE_ENTRY(mha_fused_f32, float, kFused)
 
-// f32 mha_packed with the row log-sum-exp: as mha_packed's entry point,
-// with lse a device pointer to a contiguous (B, NH, S) f32 buffer.
-#define LSE_ENTRY(name, T)                                                   \
-  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
-                      void* lse, int B, int S, int NH, int D, int gx,       \
-                      int gy, int gz, int threads, int smem, void* stream) { \
-    return launch<T, kBatched, true>(q, k, v, o, lse, B, S, NH, D, gx, gy,  \
-                                     gz, threads, smem, stream);             \
-  }
-
-LSE_ENTRY(mha_packed_lse_f32, float)
+// f32 mha_packed with the row log-sum-exp: as mha_batched_heads_f32, with
+// lse a device pointer to a contiguous (B, NH, S) f32 buffer.
+extern "C" int mha_packed_lse_f32(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int B, int S, int NH,
+                                  int D, int gx, int gy, int gz, int threads,
+                                  int smem, void* stream) {
+  return launch<float, kBatched, true>(q, k, v, o, lse, B, S, NH, D, gx, gy,
+                                       gz, threads, smem, stream);
+}
 
 // The CTAs of an instance that fit on one SM at (threads, smem), as
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them; a negative
@@ -461,11 +453,7 @@ LSE_ENTRY(mha_packed_lse_f32, float)
     return occupancy<T, F, kLse>(D, threads, smem);             \
   }
 
-OCC_ENTRY(mha_packed_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_packed_lse_occupancy_f32, float, kBatched, true)
-OCC_ENTRY(mha_occupancy_f32, float, kBatched, false)
-OCC_ENTRY(mha_pairs_occupancy_f32, float, kBatched, false)
-OCC_ENTRY(mha_qblock_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_bf16, __nv_bfloat16, kBatched, false)
 OCC_ENTRY(mha_batched_heads_occupancy_f32, float, kBatched, false)
 OCC_ENTRY(mha_fused_occupancy_bf16, __nv_bfloat16, kFused, false)

@@ -81,8 +81,7 @@
 //     one.
 // The mbarrier and TMA helpers and the tensor map are hopper.cuh's; its
 // encoder comes from cudaGetDriverEntryPoint, so the library needs nvcc
-// alone (no -lcuda). tools/packed_ws.py builds this source with
-// other tile shapes and softmax forms and times them side by side.
+// alone (no -lcuda).
 //
 // The bias of mha_packed_relpos. BEATs adds to the score of query row i and
 // key j of head h the term g[b, h, i] * rel[h, j - i + S - 1], a gate per
@@ -106,7 +105,7 @@
 namespace {
 
 // The tile shape. ops/attention.py:ws_tile reads these three lines for the
-// launch geometry, and tools/packed_ws.py rewrites them for its variants.
+// launch geometry.
 constexpr int kKeys = 64;       // keys of a K/V tile
 constexpr int kConsumers = 3;   // warpgroups of 64 query rows
 constexpr int kStages = 4;      // K/V tiles in the ring
@@ -570,20 +569,14 @@ int occupancy(int D, int threads, int smem) {
 // a cudaStream_t. Returns the cudaError_t of the launch (0 on success); an
 // instance that does not exist, a launch other than it needs or a tensor
 // map cuTensorMapEncodeTiled refuses is cudaErrorInvalidValue. The caller
-// validates shapes. mha_packed, mha, mha_pairs and mha_qblock launch one
-// instance on the same memory.
-#define WS_ENTRY(name)                                                       \
-  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
-                      int B, int S, int NH, int D, int gx, int gy, int gz,  \
-                      int threads, int smem, void* stream) {                 \
-    return launch<kPlain>(q, k, v, o, nullptr, nullptr, B, S, NH, D, gx, gy, \
-                          gz, threads, smem, stream);                        \
-  }
-
-WS_ENTRY(mha_packed_bf16)
-WS_ENTRY(mha_bf16)
-WS_ENTRY(mha_pairs_bf16)
-WS_ENTRY(mha_qblock_bf16)
+// validates shapes.
+extern "C" int mha_packed_bf16(const void* q, const void* k, const void* v,
+                               void* o, int B, int S, int NH, int D, int gx,
+                               int gy, int gz, int threads, int smem,
+                               void* stream) {
+  return launch<kPlain>(q, k, v, o, nullptr, nullptr, B, S, NH, D, gx, gy, gz,
+                        threads, smem, stream);
+}
 
 extern "C" int mha_packed_lse_bf16(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
@@ -616,7 +609,4 @@ extern "C" int mha_packed_relpos_bf16(const void* q, const void* k,
 
 WS_OCCUPANCY(mha_packed_occupancy_bf16, kPlain)
 WS_OCCUPANCY(mha_packed_lse_occupancy_bf16, kWithLse)
-WS_OCCUPANCY(mha_occupancy_bf16, kPlain)
-WS_OCCUPANCY(mha_pairs_occupancy_bf16, kPlain)
-WS_OCCUPANCY(mha_qblock_occupancy_bf16, kPlain)
 WS_OCCUPANCY(mha_packed_relpos_occupancy_bf16, kRelpos)

@@ -36,36 +36,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _DTYPES = ("bf16", "f32")
 
 
-def _walks(names: list[str]) -> dict:
-    """The entry points of the persistent walks' sources: per name (with
-    its dtype) the launch, whose lse forward also takes the lse buffer, and
-    the instance's CTAs per SM (D, threads, smem)."""
-    return {**{name: (5 if "_lse_" in name else 4, 9, True)
-               for name in names},
+def _walks(pointers: dict[str, int]) -> dict:
+    """The entry points of attention kernels that report their occupancy:
+    per launch symbol (with its dtype) and its pointer arguments, the
+    launch (B, S, NH, D, the grid, threads and smem) and the CTAs per SM of
+    the instance (D, threads, smem)."""
+    return {**{name: (n_ptr, 9, True) for name, n_ptr in pointers.items()},
             **{name.replace("_bf16", "_occupancy_bf16")
                .replace("_f32", "_occupancy_f32"): (0, 3, False)
-               for name in names}}
+               for name in pointers}}
 
 
-# mha_packed's function on the same memory: the walks' own instances
-_SAME_AS_PACKED = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs",
-                   "mha_qblock")
+# one launch symbol per compiled kernel (ops/attention.py:KERNEL_OF picks
+# the one an entry point launches): q, k, v, the output and the lse
+# buffer, gate and rel, or the backward's operands
 _ENTRY_POINTS = {
-    # the launches (q, k, v, ... and B, S, NH, D, grid, threads, smem), and
-    # the CTAs per SM of the bf16 walk's instances
     "attention_bwd": {
-        **{f"mha_packed_bwd_{part}_{dtype}": (8, 9, True)
-           for part in ("dq", "dkdv") for dtype in _DTYPES},
-        **{f"mha_packed_bwd_{part}_occupancy_bf16": (0, 3, False)
+        **_walks({f"mha_packed_bwd_{part}_bf16": 8
+                  for part in ("dq", "dkdv")}),
+        **{f"mha_packed_bwd_{part}_f32": (8, 9, True)
            for part in ("dq", "dkdv")}},
-    "attention_pipelined": _walks(
-        [f"{fn}_{dtype}" for fn in ("mha_batched_heads", "mha_fused")
-         for dtype in _DTYPES] + [f"{fn}_f32" for fn in _SAME_AS_PACKED]),
-    "attention_ws": {
-        **_walks([f"{fn}_bf16" for fn in _SAME_AS_PACKED]),
-        # BEATs's attention: q, k, v, o, gate and rel
-        "mha_packed_relpos_bf16": (6, 9, True),
-        "mha_packed_relpos_occupancy_bf16": (0, 3, False)},
+    "attention_pipelined": _walks({
+        **{f"{fn}_{dtype}": 4 for fn in ("mha_batched_heads", "mha_fused")
+           for dtype in _DTYPES},
+        "mha_packed_lse_f32": 5}),
+    "attention_ws": _walks({"mha_packed_bf16": 4, "mha_packed_lse_bf16": 5,
+                            "mha_packed_relpos_bf16": 6}),
     # the AST trunk's elementwise epilogues (ops/epilogue.py): rows, width
     # and LayerNorm's eps
     "trunk_epilogue": {

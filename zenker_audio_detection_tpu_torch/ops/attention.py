@@ -22,14 +22,21 @@ log-sum-exp), the backward two flash kernels, `mha_packed_bwd_dq` and
 `mha_packed_bwd_dkdv` (`csrc/attention_bwd.cu`), that recompute the
 probabilities tile by tile.
 
-On CUDA tensors each launches its hand-written Hopper kernel in
-`csrc/attention_ws.cu` (bf16 `mha_packed`, `mha_packed_lse`, `mha`,
-`mha_pairs` and `mha_qblock`: a persistent CTA per SM, a TMA producer
-warpgroup and consumer warpgroups of 64 rows, `ws_tile`),
-`csrc/attention_pipelined.cu` (`mha_batched_heads`, `mha_fused` and the f32
-forms of those five: a cp.async ring and wgmma, under decompositions that
-fill the card) or `csrc/attention_bwd.cu`; on CPU tensors each runs
-the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
+On CUDA tensors each launches a hand-written Hopper kernel, the one
+`KERNEL_OF` gives it, through that kernel's C symbol:
+`csrc/attention_ws.cu`'s warp-specialised walk (a persistent CTA per SM,
+a TMA producer warpgroup and consumer warpgroups of 64 rows, `ws_tile`)
+for bf16 `mha_packed`, `mha`, `mha_pairs` and `mha_qblock`
+(`mha_packed_bf16`), `mha_packed_lse` (`mha_packed_lse_bf16`) and
+`mha_packed_relpos` (`mha_packed_relpos_bf16`);
+`csrc/attention_pipelined.cu`'s cp.async ring and wgmma, under
+decompositions that fill the card, for `mha_batched_heads` and, in f32,
+`mha_packed`, `mha`, `mha_pairs` and `mha_qblock`
+(`mha_batched_heads_bf16`, `mha_batched_heads_f32`), the f32
+`mha_packed_lse` (`mha_packed_lse_f32`) and `mha_fused` (`mha_fused_bf16`,
+`mha_fused_f32`); `csrc/attention_bwd.cu` for the backward
+(`mha_packed_bwd_dq_*`, `mha_packed_bwd_dkdv_*`). On CPU tensors each
+runs the plain PyTorch version (`reference_mha`, `mha_packed_reference`,
 `mha_packed_lse_reference`, `mha_packed_bwd_reference`). There is no
 fallback from a kernel to the plain version on the card: a CUDA tensor the
 kernels do not take raises. A contiguous (B, S, NH, D) tensor is the same memory as packed
@@ -58,6 +65,7 @@ def cdiv(a: int, b: int) -> int:
 
 KERNEL_HEAD_DIMS = (32, 64)  # head widths the kernels are compiled for
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+_DTYPES = ("bf16", "f32")  # their names in the C symbols
 _MAX_GRID_X = 2**31 - 1
 _MAX_GRID_YZ = 65535
 # shared memory one block may use on sm_90 (227 KB)
@@ -66,31 +74,8 @@ _TILE_ROWS = 64  # query rows of a 4-warp tile (16 per warp, mma.m16n8k16)
 _TILE_KEYS = 64  # keys per shared-memory tile
 # the heads of one mha_fused CTA; mha_pairs takes whole pairs of heads
 _PAIR_HEADS = 2
-# csrc/attention_ws.cu: mha_packed's function on the same memory (a
-# contiguous (B, S, NH, D) tensor is packed (B, S, NH * D)) in bf16, the
-# persistent walk with one CTA per SM: a producer warpgroup and consumer
-# warpgroups of 64 rows, a ring of K and V tiles and its mbarriers
-# (`ws_tile`)
-_WS = ("mha_packed", "mha_packed_lse", "mha", "mha_pairs", "mha_qblock")
-# csrc/attention_pipelined.cu: the persistent (batch, head, 128-row block)
-# walk of mha_batched_heads, which also serves the f32 forms of _WS, and
-# mha_fused's grid
-_PERSISTENT = ("mha_batched_heads", *_WS)
-_PIPELINED = (*_PERSISTENT, "mha_fused")
 _RING_STAGES = 3  # bf16 K/V tiles in flight (kStages)
 _RING_ALIGN = 1024  # slack to align the ring for the 128-byte swizzle
-_WS_TILE = re.compile(r"^constexpr int (kKeys|kConsumers|kStages) = (\d+);",
-                      re.MULTILINE)
-# csrc/attention_bwd.cu: the bf16 backward kernels, persistent walks in the
-# shape of attention_ws.cu's (`bwd_tile`); bwd_dkdv's stages also hold the
-# lse and delta of their 64 queries
-_BWD = ("mha_packed_bwd_dq", "mha_packed_bwd_dkdv")
-# csrc/attention_ws.cu: BEATs's attention, bf16 only, on mha_packed's
-# geometry
-_RELPOS = "mha_packed_relpos"
-_BWD_TILE = re.compile(
-    r"^constexpr int (kDqConsumers|kDkdvConsumers|kStages) = (\d+);",
-    re.MULTILINE)
 # TMA's limits on a tensor map's global memory (cuTensorMapEncodeTiled):
 # a 16-byte aligned base, pitches that are multiples of 16 bytes and below
 # 2^40, and dimensions of at most 2^32
@@ -98,6 +83,78 @@ _TMA_ALIGN = 16
 _TMA_MAX_PITCH = 1 << 40
 _TMA_MAX_DIM = 1 << 32
 H100_SMS = 132  # SMs of an H100 SXM, the default of launch_geometry's sms
+
+
+@dataclass(frozen=True)
+class Kernel:
+    """One compiled attention kernel: its source `csrc/<source>.cu`, its C
+    launch symbol, its C occupancy symbol (None for the f32 backward, whose
+    grid assumes no CTAs per SM) and the family of its launch geometry:
+    "ws" the warp-specialised walk of `csrc/attention_ws.cu` (a producer
+    warpgroup and consumer warpgroups of 64 rows, `ws_tile`), "batched" the
+    persistent (batch element, head, 128-row block) walk of
+    `csrc/attention_pipelined.cu`, "fused" `mha_fused`'s grid there, "bwd"
+    the backward's of `csrc/attention_bwd.cu` (`bwd_tile`)."""
+    source: str
+    launch: str
+    occupancy: str | None
+    geometry: str
+
+
+def _kernel(source: str, name: str, dtype: str, geometry: str) -> Kernel:
+    """The kernel of C symbols `{name}_{dtype}` and
+    `{name}_occupancy_{dtype}` (the f32 backward has no occupancy
+    symbol)."""
+    occupancy = (None if geometry == "bwd" and dtype == "f32"
+                 else f"{name}_occupancy_{dtype}")
+    return Kernel(source, f"{name}_{dtype}", occupancy, geometry)
+
+
+# (entry point, dtype) -> the compiled kernel it launches; the one place
+# that choice is written. mha, mha_pairs and mha_qblock compute
+# mha_packed's function on the same memory (a contiguous (B, S, NH, D)
+# tensor is packed (B, S, NH * D)), so they launch its kernel: in bf16 the
+# warp-specialised walk, in f32 mha_batched_heads' own.
+# mha_packed_relpos has no f32 kernel.
+KERNEL_OF = {
+    **{(entry, "bf16"): _kernel("attention_ws", "mha_packed", "bf16", "ws")
+       for entry in ("mha_packed", "mha", "mha_pairs", "mha_qblock")},
+    **{(entry, "f32"): _kernel("attention_pipelined", "mha_batched_heads",
+                               "f32", "batched")
+       for entry in ("mha_packed", "mha", "mha_pairs", "mha_qblock",
+                     "mha_batched_heads")},
+    ("mha_packed_lse", "bf16"): _kernel("attention_ws", "mha_packed_lse",
+                                        "bf16", "ws"),
+    ("mha_packed_lse", "f32"): _kernel("attention_pipelined",
+                                       "mha_packed_lse", "f32", "batched"),
+    ("mha_packed_relpos", "bf16"): _kernel("attention_ws",
+                                           "mha_packed_relpos", "bf16", "ws"),
+    ("mha_batched_heads", "bf16"): _kernel(
+        "attention_pipelined", "mha_batched_heads", "bf16", "batched"),
+    **{("mha_fused", dtype): _kernel("attention_pipelined", "mha_fused",
+                                     dtype, "fused") for dtype in _DTYPES},
+    **{(f"mha_packed_bwd_{part}", dtype): _kernel(
+        "attention_bwd", f"mha_packed_bwd_{part}", dtype, "bwd")
+       for part in ("dq", "dkdv") for dtype in _DTYPES},
+}
+
+
+def _dtype(itemsize: int) -> str:
+    return "bf16" if itemsize == 2 else "f32"
+
+
+def kernel_of(kind: str, itemsize: int) -> Kernel:
+    """`KERNEL_OF`'s kernel of entry point `kind` for the dtype of
+    `itemsize` bytes; raises for a kind or dtype no kernel is compiled
+    for."""
+    dtype = _dtype(itemsize)
+    if (kind, dtype) in KERNEL_OF:
+        return KERNEL_OF[kind, dtype]
+    compiled = [d for k, d in KERNEL_OF if k == kind]
+    if compiled:
+        raise ValueError(f"{kind} is compiled for {' and '.join(compiled)} "
+                         f"only")
+    raise ValueError(f"no attention kernel named {kind!r}")
 
 
 def reference_mha(q: torch.Tensor, k: torch.Tensor,
@@ -140,7 +197,7 @@ class Launch:
     persistent walks), the bytes of dynamic shared memory and, for the
     kernels of `csrc/attention_pipelined.cu`, `csrc/attention_ws.cu` and
     the bf16 `csrc/attention_bwd.cu`, the CTAs per SM the design assumes
-    (`pipelined_occupancy` reads what the card makes of it)."""
+    (`occupancy` reads what the card makes of it)."""
     grid: tuple[int, int, int]
     threads: int
     rows: int
@@ -156,72 +213,33 @@ def _check_block_q(block_q: int) -> None:
         raise ValueError(f"block_q must be at least 1, got {block_q}")
 
 
-def parse_ws_tile(text: str) -> tuple[int, int, int]:
-    """(keys per K/V tile, consumer warpgroups, ring stages) of the text of
-    `csrc/attention_ws.cu` or of a variant of it: its kKeys, kConsumers and
-    kStages constexprs."""
-    found = dict(_WS_TILE.findall(text))
-    if sorted(found) != ["kConsumers", "kKeys", "kStages"]:
-        raise ValueError("no kKeys, kConsumers and kStages constexprs in the "
-                         "source text")
-    return int(found["kKeys"]), int(found["kConsumers"]), int(found["kStages"])
-
-
 @functools.lru_cache(maxsize=None)
+def _constexprs(source: str, names: tuple[str, ...]) -> tuple[int, ...]:
+    """The values of the int constexprs `names` of `csrc/<source>.cu`, read
+    once: the source is the one place they are written."""
+    pattern = rf"^constexpr int ({'|'.join(names)}) = (\d+);"
+    found = dict(re.findall(pattern, (_cuda.CSRC / f"{source}.cu").read_text(),
+                            re.MULTILINE))
+    if sorted(found) != sorted(names):
+        raise ValueError(f"no {', '.join(names)} constexprs in "
+                         f"csrc/{source}.cu")
+    return tuple(int(found[name]) for name in names)
+
+
 def ws_tile() -> tuple[int, int, int]:
-    """`parse_ws_tile` of `csrc/attention_ws.cu`, read once: the source is
-    the one place the tile shape is written."""
-    return parse_ws_tile((_cuda.CSRC / "attention_ws.cu").read_text())
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_constants() -> dict:
-    return {name: int(value) for name, value in _BWD_TILE.findall(
-        (_cuda.CSRC / "attention_bwd.cu").read_text())}
+    """(keys per K/V tile, consumer warpgroups, ring stages) of the
+    warp-specialised walk: the kKeys, kConsumers and kStages constexprs of
+    `csrc/attention_ws.cu`."""
+    return _constexprs("attention_ws", ("kKeys", "kConsumers", "kStages"))
 
 
 def bwd_tile(kind: str) -> tuple[int, int]:
     """(consumer warpgroups, ring stages) of the bf16 backward kernel `kind`
     (`mha_packed_bwd_dq` or `mha_packed_bwd_dkdv`): the kDqConsumers or
-    kDkdvConsumers, and kStages, constexprs of `csrc/attention_bwd.cu`,
-    read once."""
-    found = _bwd_constants()
-    if sorted(found) != ["kDkdvConsumers", "kDqConsumers", "kStages"]:
-        raise ValueError("no kDqConsumers, kDkdvConsumers and kStages "
-                         "constexprs in csrc/attention_bwd.cu")
-    consumers = found["kDkdvConsumers" if kind == "mha_packed_bwd_dkdv"
-                      else "kDqConsumers"]
-    return consumers, found["kStages"]
-
-
-def _bwd(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
-         sms: int):
-    """(grid, rows, threads, smem, ctas_per_sm) of the backward kernels.
-    bf16: the persistent walk of `csrc/attention_bwd.cu`, one CTA per SM
-    of a producer and 64-row consumer warpgroups (`bwd_tile(kind)`) over
-    (batch element, head, row block) items, rows being query rows (bwd_dq)
-    or keys (bwd_dkdv); its dynamic shared memory is the alignment slack,
-    the stages of two (64, D) tiles (and in bwd_dkdv each stage's 64 lse
-    and delta values), then a full and an empty mbarrier per stage. f32: one
-    4-warp block per (64-row tile, head, batch element), static shared
-    memory only."""
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kind} is compiled for head widths "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    if itemsize != 2:
-        return (cdiv(S, _TILE_ROWS), NH, B), _TILE_ROWS, 128, 0, None
-    if sms < 1:
-        raise ValueError(f"sms must be at least 1, got {sms}")
-    consumers, stages = bwd_tile(kind)
-    rows = _TILE_ROWS * consumers
-    stats = 2 * _TILE_ROWS * 4 if kind == "mha_packed_bwd_dkdv" else 0
-    smem = (_RING_ALIGN + stages * (2 * _TILE_ROWS * D * itemsize + stats)
-            + 2 * stages * 8)
-    items = B * NH * cdiv(S, rows)
-    if items > _MAX_GRID_X:
-        raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
-                         f"{items} work items, beyond a 32-bit count")
-    return (min(items, sms), 1, 1), rows, 128 * (consumers + 1), smem, 1
+    kDkdvConsumers, and kStages, constexprs of `csrc/attention_bwd.cu`."""
+    dq, dkdv, stages = _constexprs(
+        "attention_bwd", ("kDqConsumers", "kDkdvConsumers", "kStages"))
+    return (dkdv if kind == "mha_packed_bwd_dkdv" else dq), stages
 
 
 def _static_smem(D: int, itemsize: int) -> int:
@@ -230,84 +248,89 @@ def _static_smem(D: int, itemsize: int) -> int:
     return itemsize * 2 * _TILE_KEYS * D
 
 
-def _pipelined(kind: str, B: int, S: int, NH: int, D: int, itemsize: int,
-               sms: int, tile: tuple[int, int, int] | None):
-    """(grid, rows, threads, smem, ctas_per_sm) of the kernels of
-    `csrc/attention_pipelined.cu` and `csrc/attention_ws.cu`. The
-    persistent walk: bf16 `mha_packed`, `mha_packed_lse`, `mha`,
-    `mha_pairs` and `mha_qblock` one CTA per SM of a producer and 64-row
-    consumer warpgroups (attention_ws.cu, of tile shape `tile`, by default
-    `ws_tile()`);
-    otherwise two warpgroups (256 threads) and a ring of `_RING_STAGES`
-    stages of 64-key K and V tiles for one head, 2 CTAs per SM, or in f32
-    the FMA tile's K/V tiles, 8 warps and 2 CTAs per SM. `mha_fused`: bf16
-    as the walk with a head pair's tiles, f32 4 warps and 4 CTAs per SM."""
+def _persistent(kind: str, B: int, S: int, NH: int, rows: int, ctas: int,
+                sms: int) -> tuple[int, int, int]:
+    """The grid of a persistent walk: sms x ctas CTAs, at most one per
+    item, walk the (batch element, head, row block) items,
+    i = blockIdx.x + j * gridDim.x."""
+    items = B * NH * cdiv(S, rows)
+    if items > _MAX_GRID_X:
+        raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
+                         f"{items} work items, beyond a 32-bit count")
+    return min(items, sms * ctas), 1, 1
+
+
+def _geometry(kind: str, kernel: Kernel, B: int, S: int, NH: int, D: int,
+              itemsize: int, sms: int):
+    """(grid, rows, threads, smem, ctas_per_sm) of `kernel`'s geometry.
+
+    "ws": one CTA per SM of a producer and `ws_tile()`'s 64-row consumer
+    warpgroups; its dynamic shared memory is the alignment slack, the ring
+    of K and V tiles, then a full and an empty mbarrier per stage.
+    "batched": two warpgroups (256 threads) on 128-row items, 2 CTAs per
+    SM, and a ring of `_RING_STAGES` stages of 64-key K and V tiles for one
+    head, or in f32 the FMA tile's K/V tiles. "fused": one CTA per (64-row
+    query block, batch element), all heads; bf16 a head pair's ring, 2 CTAs
+    per SM, f32 4 warps and 4 CTAs per SM. "bwd": bf16 the walk of
+    `bwd_tile(kind)`, rows being query rows (bwd_dq) or keys (bwd_dkdv), its
+    stages of two (64, D) tiles (and in bwd_dkdv each stage's 64 lse and
+    delta values) and their mbarriers; f32 one 4-warp block per (64-row
+    tile, head, batch element), static shared memory only."""
+    bf16 = itemsize == 2
+    if kernel.geometry == "ws":
+        keys, consumers, stages = ws_tile()
+        rows = _TILE_ROWS * consumers
+        smem = (_RING_ALIGN + stages * 2 * keys * D * itemsize
+                + 2 * stages * 8)
+        return (_persistent(kind, B, S, NH, rows, 1, sms), rows,
+                128 * (consumers + 1), smem, 1)
+    if kernel.geometry == "batched":
+        rows = 2 * _TILE_ROWS
+        smem = (_RING_STAGES * 2 * _TILE_KEYS * D * itemsize + _RING_ALIGN
+                if bf16 else _static_smem(D, itemsize))
+        return (_persistent(kind, B, S, NH, rows, 2, sms), rows, 2 * rows,
+                smem, 2)
+    if kernel.geometry == "fused":
+        smem = (_RING_STAGES * 2 * _PAIR_HEADS * _TILE_KEYS * D * itemsize
+                + _RING_ALIGN) if bf16 else _static_smem(D, itemsize)
+        threads = 2 * _TILE_ROWS * (_PAIR_HEADS if bf16 else 1)
+        return ((cdiv(S, _TILE_ROWS), B, 1), _TILE_ROWS, threads, smem,
+                2 if bf16 else 4)
+    if not bf16:
+        return (cdiv(S, _TILE_ROWS), NH, B), _TILE_ROWS, 128, 0, None
+    consumers, stages = bwd_tile(kind)
+    rows = _TILE_ROWS * consumers
+    stats = 2 * _TILE_ROWS * 4 if kind == "mha_packed_bwd_dkdv" else 0
+    smem = (_RING_ALIGN + stages * (2 * _TILE_ROWS * D * itemsize + stats)
+            + 2 * stages * 8)
+    return (_persistent(kind, B, S, NH, rows, 1, sms), rows,
+            128 * (consumers + 1), smem, 1)
+
+
+def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
+                    itemsize: int, block_q: int = 256,
+                    sms: int = H100_SMS) -> Launch:
+    """The launch of entry point `kind` at (B, S, NH, D) in the dtype of
+    `itemsize` bytes: the geometry of the kernel `KERNEL_OF` gives it
+    (`_geometry`). `sms` is the card's SM count, which sizes the persistent
+    walks' grids. Query blocks are counted with `cdiv`, so the last, ragged
+    one is launched too. `mha_pairs` takes an even NH: the JAX function
+    sends an odd one to `mha_packed`."""
+    if kind == "mha_pairs" and NH % _PAIR_HEADS:
+        raise ValueError(f"mha_pairs takes an even number of heads, got {NH}")
+    kernel = kernel_of(kind, itemsize)
+    _check_block_q(block_q)
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kind} is compiled for head widths "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     if sms < 1:
         raise ValueError(f"sms must be at least 1, got {sms}")
-    bf16 = itemsize == 2
-    if kind == "mha_fused":
-        # one CTA per (64-row query block, batch element), all heads
-        smem = (_RING_STAGES * 2 * _PAIR_HEADS * _TILE_KEYS * D * itemsize
-                + _RING_ALIGN) if bf16 else _static_smem(D, itemsize)
-        rows = _TILE_ROWS
-        threads = 2 * rows * (_PAIR_HEADS if bf16 else 1)
-        return (cdiv(S, rows), B, 1), rows, threads, smem, 2 if bf16 else 4
-    # persistent: sms x ctas CTAs walk the (batch, head, row block) items,
-    # i = blockIdx.x + j * gridDim.x; 128 rows, or 64 per consumer
-    # warpgroup of attention_ws.cu
-    rows = 2 * _TILE_ROWS
-    if bf16 and kind in _WS:
-        keys, consumers, stages = tile or ws_tile()
-        rows, threads, ctas = _TILE_ROWS * consumers, 128 * (consumers + 1), 1
-        smem = (_RING_ALIGN + stages * 2 * keys * D * itemsize
-                + 2 * stages * 8)  # the ring, then its mbarriers
-    else:
-        threads, ctas = 2 * rows, 2
-        smem = (_RING_STAGES * 2 * _TILE_KEYS * D * itemsize + _RING_ALIGN
-                if bf16 else _static_smem(D, itemsize))
-    items = B * NH * cdiv(S, rows)
-    if items > _MAX_GRID_X:
-        raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} has "
-                         f"{items} work items, beyond a 32-bit count")
-    return (min(items, sms * ctas), 1, 1), rows, threads, smem, ctas
-
-
-def launch_geometry(kind: str, B: int, S: int, NH: int, D: int,
-                    itemsize: int, block_q: int = 256, sms: int = H100_SMS,
-                    tile: tuple[int, int, int] | None = None) -> Launch:
-    """The launch of entry point `kind` at (B, S, NH, D); `sms` is the
-    card's SM count, which sizes the persistent grid of `mha_packed`,
-    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
-    `mha_batched_heads`, `mha_packed_relpos` (`mha_packed`'s bf16 walk) and
-    the bf16 backward kernels; `tile` is the shape
-    of a variant of `csrc/attention_ws.cu` (`parse_ws_tile`), the source's
-    own by default. Query blocks are counted with `cdiv`, so the
-    last, ragged one is launched too. `mha_pairs` takes an even NH: the JAX
-    function sends an odd one to `mha_packed`."""
-    if kind == "mha_pairs" and NH % _PAIR_HEADS:
-        raise ValueError(f"mha_pairs takes an even number of heads, got {NH}")
-    rows, smem, ctas, threads = _TILE_ROWS, 0, None, None
-    if kind in _BWD:
-        grid, rows, threads, smem, ctas = _bwd(kind, B, S, NH, D, itemsize,
-                                               sms)
-    elif kind == _RELPOS:
-        if itemsize != 2:
-            raise ValueError(f"{kind} is compiled for bf16 only")
-        grid, rows, threads, smem, ctas = _pipelined("mha_packed", B, S, NH,
-                                                     D, itemsize, sms, tile)
-    elif kind in _PIPELINED:
-        _check_block_q(block_q)
-        grid, rows, threads, smem, ctas = _pipelined(kind, B, S, NH, D,
-                                                     itemsize, sms, tile)
-    else:
-        raise ValueError(f"no attention kernel named {kind!r}")
+    grid, rows, threads, smem, ctas = _geometry(kind, kernel, B, S, NH, D,
+                                                itemsize, sms)
     if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{kind} at (B, S, NH) = {(B, S, NH)} needs the "
                          f"grid {grid}, beyond CUDA's limits")
-    return Launch(grid, threads or 2 * rows, rows, smem, ctas)
+    return Launch(grid, threads, rows, smem, ctas)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str,
@@ -354,22 +377,25 @@ def _check_heads(q: torch.Tensor, num_heads: int) -> None:
                          f"num_heads={num_heads} heads")
 
 
-def _suffix(x: torch.Tensor) -> str:
-    return "bf16" if x.dtype == torch.bfloat16 else "f32"
-
-
-def _source(kind: str, itemsize: int) -> str:
-    """The csrc/ source of `kind`'s forward kernel for the dtype of
-    `itemsize` bytes."""
-    return ("attention_ws" if kind in _WS and itemsize == 2
-            else "attention_pipelined")
-
-
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """The SMs of CUDA `device`, read once per device; they size the
     persistent grid."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _run(kind: str, tensors, B: int, S: int, NH: int, D: int,
+         block_q: int = 256) -> None:
+    """Launches the kernel `KERNEL_OF` gives entry point `kind` for the
+    dtype of q = tensors[0] on `tensors` (device pointers, in the C
+    symbol's order), at `launch_geometry`'s grid, threads and shared
+    memory."""
+    q = tensors[0]
+    kernel = kernel_of(kind, q.element_size())
+    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q,
+                          sm_count(q.device))
+    _cuda.run(kernel.source, kernel.launch, tensors,
+              (B, S, NH, D, *geo.grid, geo.threads, geo.smem), q.device)
 
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -379,52 +405,29 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     returns its output; `lse`, the (B, NH, S) f32 buffer of the lse
     forward, is written too where given."""
     _check_kernel(q, k, v, NH)
-    geo = launch_geometry(kind, B, S, NH, D, q.element_size(), block_q,
-                          sm_count(q.device))
     out = torch.empty_like(q)
-    tensors = (q, k, v, out) if lse is None else (q, k, v, out, lse)
-    _cuda.run(_source(kind, q.element_size()), f"{kind}_{_suffix(q)}",
-              tensors, (B, S, NH, D, *geo.grid, geo.threads, geo.smem),
-              q.device)
+    _run(kind, (q, k, v, out) if lse is None else (q, k, v, out, lse),
+         B, S, NH, D, block_q)
     return out
 
 
-def _occupancy(source: str, kind: str, itemsize: int, D: int) -> int:
-    """The CTAs of `kind`'s kernel in `csrc/<source>.cu` that fit on one SM
-    of the current card at `launch_geometry`'s threads and shared memory,
-    as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them."""
+def occupancy(kind: str, itemsize: int, D: int) -> int:
+    """The CTAs of the kernel `KERNEL_OF` gives entry point `kind` in the
+    dtype of `itemsize` bytes, at head width D, that fit on one SM of the
+    current card at `launch_geometry`'s threads and shared memory, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them. Builds the
+    kernels if needed; raises on a CUDA error, and for a kernel without an
+    occupancy symbol (the f32 backward's)."""
+    kernel = kernel_of(kind, itemsize)
+    if kernel.occupancy is None:
+        raise ValueError(f"{kernel.launch} has no occupancy symbol: its "
+                         f"grid assumes no CTAs per SM")
     geo = launch_geometry(kind, 1, _TILE_KEYS, _PAIR_HEADS, D, itemsize)
-    suffix = "bf16" if itemsize == 2 else "f32"
-    fn = getattr(_cuda.load(source), f"{kind}_occupancy_{suffix}")
+    fn = getattr(_cuda.load(kernel.source), kernel.occupancy)
     blocks = fn(D, geo.threads, geo.smem)
     if blocks < 0:
-        raise RuntimeError(f"{kind}_occupancy_{suffix}: cudaError_t "
-                           f"{-blocks}")
+        raise RuntimeError(f"{kernel.occupancy}: cudaError_t {-blocks}")
     return blocks
-
-
-def pipelined_occupancy(kind: str, itemsize: int, D: int) -> int:
-    """The CTAs of `kind`'s kernel (a kind of `_PIPELINED`: `mha_packed`,
-    `mha_packed_lse`, `mha`, `mha_pairs`, `mha_qblock`,
-    `mha_batched_heads` or `mha_fused`, or the bf16 `mha_packed_relpos`, of
-    the dtype of `itemsize` bytes,
-    head width D) that fit on one SM of the current card at `launch_geometry`'s threads and shared
-    memory, as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them.
-    Builds the kernels if needed; raises on a CUDA error."""
-    if kind == _RELPOS:
-        return _occupancy("attention_ws", kind, itemsize, D)
-    if kind not in _PIPELINED:
-        raise ValueError(f"no pipelined attention kernel named {kind!r}")
-    return _occupancy(_source(kind, itemsize), kind, itemsize, D)
-
-
-def bwd_occupancy(kind: str, D: int) -> int:
-    """`pipelined_occupancy` of a bf16 backward kernel (`mha_packed_bwd_dq`
-    or `mha_packed_bwd_dkdv`, the persistent walks of
-    `csrc/attention_bwd.cu`) at head width D."""
-    if kind not in _BWD:
-        raise ValueError(f"no backward attention kernel named {kind!r}")
-    return _occupancy("attention_bwd", kind, 2, D)
 
 
 def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -548,13 +551,8 @@ def mha_packed_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D = H // num_heads
     _check_kernel(q, k, v, num_heads)
     _check_layout(4, gate=gate, rel=rel)
-    geo = launch_geometry(_RELPOS, B, S, num_heads, D, 2,
-                          sms=sm_count(q.device))
     out = torch.empty_like(q)
-    _cuda.run("attention_ws", "mha_packed_relpos_bf16",
-              (q, k, v, out, gate, rel),
-              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
-              q.device)
+    _run("mha_packed_relpos", (q, k, v, out, gate, rel), B, S, num_heads, D)
     mha_packed_relpos.launches += 1
     return out
 
@@ -763,15 +761,11 @@ def mha_packed_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_packed_bwd_dq_reference(q, k, v, o, lse, g, num_heads)
     B, S, H = q.shape
     D = H // num_heads
-    geo = launch_geometry("mha_packed_bwd_dq", B, S, num_heads, D,
-                          q.element_size(), sms=sm_count(q.device))
     dq = torch.empty_like(q)
     delta = torch.empty(B, num_heads, S, dtype=torch.float32,
                         device=q.device)
-    _cuda.run("attention_bwd", f"mha_packed_bwd_dq_{_suffix(q)}",
-              (q, k, v, o, lse, g, dq, delta),
-              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
-              q.device)
+    _run("mha_packed_bwd_dq", (q, k, v, o, lse, g, dq, delta), B, S,
+         num_heads, D)
     mha_packed_bwd_dq.launches += 1
     return dq, delta
 
@@ -795,13 +789,9 @@ def mha_packed_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              num_heads)
     B, S, H = q.shape
     D = H // num_heads
-    geo = launch_geometry("mha_packed_bwd_dkdv", B, S, num_heads, D,
-                          q.element_size(), sms=sm_count(q.device))
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _cuda.run("attention_bwd", f"mha_packed_bwd_dkdv_{_suffix(q)}",
-              (q, k, v, g, lse, delta, dk, dv),
-              (B, S, num_heads, D, *geo.grid, geo.threads, geo.smem),
-              q.device)
+    _run("mha_packed_bwd_dkdv", (q, k, v, g, lse, delta, dk, dv), B, S,
+         num_heads, D)
     mha_packed_bwd_dkdv.launches += 1
     return dk, dv
 
