@@ -72,7 +72,13 @@ fails the run loudly:
      bf16 ulp (f32: EPILOGUE_F32_TOL); each timed at 128 x 1214 rows bf16
      beside its bytes bound and the plain version; the trunk (`encode`)
      at batch 128, S = 1214 and 146, fused (inference mode) and composed
-     (grad enabled), with the fused route's peak memory;
+     (grad enabled), with the fused route's peak memory; BEATs's
+     (post_residual_layer_norm, relpos_gates) at (128, 512) and (3, 77)
+     tokens of 768 in bf16 and f32: the scaled residual sum bit for bit
+     torch.add's (h bitwise the AST's layer_norm kernel on torch.add's
+     sum), h within one bf16 ulp, the gates within epilogue.GATE_TOL; each
+     timed at 128 x 512 rows bf16 beside its bytes bound and the plain
+     version, and BEATs's trunk fused and composed at batch 128;
   4. engine: TwoStageEngine at batch 128, bf16, attention_impl="kernel" on
      60 s of seeded int16 audio in "all" and "gated" modes, with the launch
      counters zeroed just before and read just after (mha_packed 12 a
@@ -88,9 +94,10 @@ fails the run loudly:
   4b. BEATs engine: TwoStageEngine with two full-size BEATs stages
      (BEATsConfig(num_labels=2), S = 512) at batch 128, bf16, "all" mode,
      on the same audio, the counts zeroed just before and read just after
-     (12 mha_packed_relpos launches per stage-chunk, no other kernel and
-     no epilogue of the AST trunk), its window probabilities against the
-     same engine with attention_impl="torch" within ENGINE_TOL;
+     (per stage-chunk 12 mha_packed_relpos, 24 post_residual_layer_norm
+     and 12 relpos_gates launches, no other kernel and no epilogue of the
+     AST trunk), its window probabilities against the same engine with
+     attention_impl="torch" within ENGINE_TOL;
   5. CLI: cli.infer_long_audio on two WAVs and two exported full-size model
      directories;
   6. training: mha_packed_trainable alone at (16, 1214, 768) f32 and bf16:
@@ -368,6 +375,11 @@ EPILOGUE_ROWS = (128 * 1214, 8 * 146)
 EPILOGUE_WIDTHS = (768, 3072)
 EPILOGUE_F32_TOL = 1e-5
 EPILOGUES = ("qkv_bias", "bias_gelu", "residual_layer_norm")
+# BEATs's epilogues (the same source): the post-LN add-then-LayerNorm,
+# checked and timed at a stage-chunk of S = 512 and a short odd shape,
+# (batch, S) of the gates' q; the gates within epilogue.GATE_TOL
+BEATS_EPILOGUES = ("post_residual_layer_norm", "relpos_gates")
+BEATS_EPILOGUE_SHAPES = ((128, 512), (3, 77))
 # the BEATs stages' feature statistics (BEATs.preprocess's fbank mean and
 # std)
 BEATS_MEAN, BEATS_STD = 15.41663, 6.55582
@@ -1035,23 +1047,165 @@ def require_epilogue(torch, what: str, got, want,
 def zero_epilogue_counts() -> None:
     from zenker_audio_detection_tpu_torch.ops import epilogue as epi
 
-    for name in EPILOGUES:
+    for name in EPILOGUES + BEATS_EPILOGUES:
         getattr(epi, name).launches = 0
 
 
 def epilogue_counts() -> dict:
     from zenker_audio_detection_tpu_torch.ops import epilogue as epi
 
-    return {name: getattr(epi, name).launches for name in EPILOGUES}
+    return {name: getattr(epi, name).launches
+            for name in EPILOGUES + BEATS_EPILOGUES}
 
 
-def expected_epilogue_counts(layers: int, stage_chunks: int) -> dict:
+def expected_epilogue_counts(layers: int, stage_chunks: int,
+                             beats: bool = False) -> dict:
     """The epilogue launches of `stage_chunks` fused trunk forwards of
-    `layers` blocks: qkv_bias and bias_gelu once a block,
-    residual_layer_norm twice a block and once on the embeddings."""
-    return {"qkv_bias": layers * stage_chunks,
-            "bias_gelu": layers * stage_chunks,
-            "residual_layer_norm": (2 * layers + 1) * stage_chunks}
+    `layers` blocks, every other epilogue at 0. AST: qkv_bias and
+    bias_gelu once a block, residual_layer_norm twice a block and once on
+    the embeddings; BEATs: relpos_gates once a block and
+    post_residual_layer_norm twice."""
+    want = {name: 0 for name in EPILOGUES + BEATS_EPILOGUES}
+    if beats:
+        want.update(relpos_gates=layers * stage_chunks,
+                    post_residual_layer_norm=2 * layers * stage_chunks)
+    else:
+        want.update(qkv_bias=layers * stage_chunks,
+                    bias_gelu=layers * stage_chunks,
+                    residual_layer_norm=(2 * layers + 1) * stage_chunks)
+    return want
+
+
+def beats_epilogues(torch, gen, act, vec) -> list:
+    """Phase 3e's BEATs part: post_residual_layer_norm and relpos_gates
+    against their plain versions at BEATS_EPILOGUE_SHAPES in bf16 and f32,
+    on the first rows of NaN-tailed buffers, with DeepNorm's alpha and 1:
+    the sum bit for bit torch.add's (h equals the AST's layer_norm kernel,
+    the same LayerNorm body, on torch.add's sum), h within one bf16 ulp of
+    ATen's LayerNorm, the gates within GATE_TOL of max(|plain|, 1). Then
+    each timed at (128 x 512, 768) bf16 in rounds of 10 calls beside its
+    bytes bound and the plain version, and BEATs's trunk (`encode`, 12
+    layers, kernel attention) at batch 128 fused (inference mode) and
+    composed (grad enabled), with the fused route's peak memory."""
+    from zenker_audio_detection_tpu_torch.models import beats as beats_mod
+    from zenker_audio_detection_tpu_torch.ops import epilogue as epi
+
+    H = EPILOGUE_WIDTHS[0]
+    NH = H // epi.GATE_HEAD
+    alphas = (24 ** 0.25, 1.0)
+    errs = {name: (0.0, 0.0) for name in BEATS_EPILOGUES}
+    gate_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S in BEATS_EPILOGUE_SHAPES:
+            rows = B * S
+            tag = f"{str(dtype).split('.')[-1]} ({rows}, {H})"
+            scale, shift = vec(H, torch.float32, 0.1, 1.0), vec(
+                H, torch.float32, 0.1)
+            _, p = act(rows, H, dtype)
+            _, x = act(rows, H, dtype)
+            for alpha in alphas:
+                got = epi.post_residual_layer_norm(p, x, scale, shift, 1e-5,
+                                                   alpha)
+                same_body = epi.residual_layer_norm(
+                    torch.add(p, x, alpha=alpha), scale, shift, 1e-5)[1]
+                require_epilogue(
+                    torch, f"post_residual_layer_norm alpha {alpha:.4f}, "
+                    f"h against layer_norm of torch.add's sum {tag}", got,
+                    same_body, True)
+                errs["post_residual_layer_norm"] = tuple(map(
+                    max, errs["post_residual_layer_norm"], require_epilogue(
+                        torch, f"post_residual_layer_norm alpha "
+                        f"{alpha:.4f} {tag}", got,
+                        epi.post_residual_layer_norm_reference(
+                            p, x, scale, shift, 1e-5, alpha), False)))
+            _, q = act(rows, H, dtype)
+            q = q.view(B, S, H)
+            w = vec(epi.GATE_HEAD * epi.GATE_OUT, torch.float32, 0.2).view(
+                epi.GATE_HEAD, epi.GATE_OUT)
+            b = vec(epi.GATE_OUT, torch.float32, 0.5)
+            grep_a = vec(NH, torch.float32, 0.5, 1.0)
+            got = epi.relpos_gates(q, w, b, grep_a, NH)
+            want = epi.relpos_gates_reference(q, w, b, grep_a, NH)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"relpos_gates {tag}: non-finite")
+            err = ((got - want).abs() / want.abs().clamp_min(1.0)).max() \
+                .item()
+            log(f"[epilogue] relpos_gates {tag}: {err:.3g} of max(|plain|, "
+                f"1) at most (at most {epi.GATE_TOL})")
+            if not err <= epi.GATE_TOL:
+                raise AssertionError(f"relpos_gates disagrees with its plain "
+                                     f"version: {err}")
+            gate_err = max(gate_err, err)
+            errs["relpos_gates"] = (
+                max(errs["relpos_gates"][0],
+                    (got - want).abs().max().item()), 0.0)
+            del p, x, q, got, want
+
+    # times at a stage-chunk of S = 512, bf16
+    (B, S), dtype, item = BEATS_EPILOGUE_SHAPES[0], torch.bfloat16, 2
+    rows = B * S
+    p, x = act(rows, H, dtype, 0)[1], act(rows, H, dtype, 0)[1]
+    q = act(rows, H, dtype, 0)[1].view(B, S, H)
+    scale, shift = vec(H, torch.float32, 0.1, 1.0), vec(H, torch.float32, 0.1)
+    w = vec(epi.GATE_HEAD * epi.GATE_OUT, torch.float32, 0.2).view(
+        epi.GATE_HEAD, epi.GATE_OUT)
+    b, grep_a = vec(epi.GATE_OUT, torch.float32), vec(NH, torch.float32)
+    alpha = alphas[0]
+    cases = {  # name -> (kernel, plain version, bytes moved)
+        "post_residual_layer_norm": (
+            lambda: epi.post_residual_layer_norm(p, x, scale, shift, 1e-5,
+                                                 alpha),
+            lambda: epi.post_residual_layer_norm_reference(
+                p, x, scale, shift, 1e-5, alpha),
+            3 * rows * H * item),
+        "relpos_gates": (
+            lambda: epi.relpos_gates(q, w, b, grep_a, NH),
+            lambda: epi.relpos_gates_reference(q, w, b, grep_a, NH),
+            rows * H * item + rows * NH * 4)}
+    records = []
+    for name, (kernel, plain, nbytes) in cases.items():
+        ms = median_ms(kernel, calls=10)
+        plain_ms = median_ms(plain, calls=10)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        log(f"[epilogue] {name} at ({rows}, {H}) bf16: kernel {ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f} % of the bound), plain (the ATen "
+            f"composition) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+        abs_err, ulps = errs[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "zenker_audio_detection_tpu_torch/csrc/"
+                      "trunk_epilogue.cu",
+            "replaces": None, "launches": None, "max_abs_err": abs_err,
+            "max_bf16_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            **({"max_rel_err": gate_err} if name == "relpos_gates" else {})})
+    del p, x, q
+
+    # BEATs's trunk, fused against composed, at batch 128
+    cfg = beats_mod.BEATsConfig(num_labels=2)
+    params = beats_mod.cast_params(
+        beats_mod.init_params(np.random.default_rng(1), cfg), torch.bfloat16,
+        "cuda")
+    feats = torch.randn(128, cfg.max_length, cfg.num_mel_bins, device="cuda",
+                        generator=gen)
+    kw = dict(dtype=torch.bfloat16, attention_impl="kernel")
+
+    def fused():
+        with torch.inference_mode():
+            return beats_mod.encode(params, feats, cfg, **kw)
+
+    composed = median_ms(lambda: beats_mod.encode(params, feats, cfg, **kw),
+                         iters=5)
+    torch.cuda.reset_peak_memory_stats()
+    fused_ms = median_ms(fused, iters=5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    err = (fused().float() - beats_mod.encode(params, feats, cfg, **kw)
+           .float()).abs().max().item()
+    log(f"[epilogue] BEATs trunk at (128, {cfg.seq_length}) bf16: fused "
+        f"{fused_ms:.3f} ms (peak {peak:.2f} GB), composed {composed:.3f} "
+        f"ms; hidden states max abs difference {err:.3g}")
+    return records
 
 
 def phase_epilogue(C, ast_mod, torch) -> list:
@@ -1178,6 +1332,7 @@ def phase_epilogue(C, ast_mod, torch) -> list:
                            for k, t in times["no_product"].items()})
         records.append(record)
     del q, k, v, x, p, fc1
+    records += beats_epilogues(torch, gen, act, vec)
 
     # the trunk, fused against composed, at batch 128
     for frames in (1024, 128):
@@ -1411,9 +1566,11 @@ def phase_beats_engine(A, C, torch) -> int:
     """TwoStageEngine with two full-size BEATs stages (BEATsConfig with 2
     labels: 12 layers, S = 512) at batch 128, bf16, "all" mode, on phase
     4's audio: the "kernel" attention with the counts zeroed just before
-    and read just after (12 mha_packed_relpos launches per stage-chunk, no
-    other kernel), its window probabilities against the same engine with
-    attention_impl="torch" (no launch) within ENGINE_TOL. The weights are
+    and read just after (per stage-chunk 12 mha_packed_relpos, 24
+    post_residual_layer_norm and 12 relpos_gates launches, no other
+    kernel), its window probabilities against the same engine with
+    attention_impl="torch" (no attention launch) within ENGINE_TOL.
+    Returns the mha_packed_relpos launches and the epilogues'. The weights are
     models.beats.init_params' draws from numpy seeds 1 and 2, with the
     bias table N(0, 1) so that the bias moves the scores (at the published
     init's 0.02 it would not)."""
@@ -1447,9 +1604,15 @@ def phase_beats_engine(A, C, torch) -> int:
     launches = counts(A)
     epilogues = epilogue_counts()
     # ------------------------------------------------------------------
-    if any(epilogues.values()):
-        raise AssertionError(f"the BEATs engine launched the AST trunk's "
-                             f"epilogues: {epilogues}")
+    want = expected_epilogue_counts(cfg.encoder_layers, 2 * chunks,
+                                    beats=True)
+    log(f"[beats] epilogue launches on the BEATs engine's path: "
+        f"{epilogues} (expected {want}: per stage-chunk "
+        f"{2 * cfg.encoder_layers} post_residual_layer_norm and "
+        f"{cfg.encoder_layers} relpos_gates, none of the AST's)")
+    if epilogues != want:
+        raise AssertionError(f"epilogue launches {epilogues} on the BEATs "
+                             f"engine's path, expected {want}")
     expected = {**{k: 0 for k in KERNELS},
                 "mha_packed_relpos": cfg.encoder_layers * 2 * chunks}
     log(f"[beats] launches on the BEATs engine's path: {launches} (expected "
@@ -1470,7 +1633,7 @@ def phase_beats_engine(A, C, torch) -> int:
         f"max abs err {err:.3g} (tolerance {ENGINE_TOL})")
     if not err <= ENGINE_TOL:
         raise AssertionError(f"the BEATs engines disagree: {err}")
-    return launches["mha_packed_relpos"]
+    return launches["mha_packed_relpos"], epilogues
 
 
 def phase_small_f32(A, ast_mod, torch) -> None:
@@ -4050,7 +4213,10 @@ def main() -> int:
     record["launches"], epilogues = phase_engine(A, C, ast_mod, torch, name)
     for r in epilogue_records:
         r["launches"] = epilogues[r["name"]]
-    relpos["launches"] = phase_beats_engine(A, C, torch)
+    relpos["launches"], beats_epilogues = phase_beats_engine(A, C, torch)
+    for r in epilogue_records:
+        if r["name"] in BEATS_EPILOGUES:
+            r["launches"] = beats_epilogues[r["name"]]
     phase_small_f32(A, ast_mod, torch)
     phase_fbank(torch)
     phase_cli(A, C, ast_mod, torch)

@@ -363,10 +363,12 @@ def test_every_bound_entry_point_is_called():
     that moved to another kernel, and no alias of a kernel is bound."""
     called = {(kernel.source, name) for kernel in A.KERNEL_OF.values()
               for name in (kernel.launch, kernel.occupancy) if name}
-    # the AST trunk's elementwise epilogues (ops/epilogue.py), both dtypes
+    # the AST and BEATs trunks' elementwise epilogues (ops/epilogue.py),
+    # both dtypes
     called |= {(epilogue.SOURCE, f"{name}_{suffix}")
                for name in ("qkv_bias", "bias_gelu", "residual_layer_norm",
-                            "layer_norm")
+                            "layer_norm", "post_residual_layer_norm",
+                            "relpos_gates")
                for suffix in ("bf16", "f32")}
     bound = {(source, name) for source, names in _cuda._ENTRY_POINTS.items()
              for name in names}

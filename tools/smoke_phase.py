@@ -10,13 +10,13 @@ Run from a checkout's root: it imports that checkout's chip_smoke.py and
 package, builds the kernels, then runs the named phases in order, as
 chip_smoke.py's main would but without the phases before them:
 `relpos` (phase 3d: mha_packed_relpos against its plain version, timed
-beside mha_packed), `epilogue` (phase 3e: the AST trunk's elementwise
-epilogues against their plain versions, timed beside them and their bytes
-bound, the trunk fused and composed, an engine's launches per
-stage-chunk), `engine` (phase 4: the full-width engine in both
-modes, its calibrated gate, against the "torch" attention),
-`beats_engine` (phase 4b: two BEATs stages on the engine, their
-mha_packed_relpos launches counted), `train_alone`
+beside mha_packed), `epilogue` (phase 3e: the AST and BEATs trunks'
+elementwise epilogues against their plain versions, timed beside them
+and their bytes bound, both trunks fused and composed), `engine` (phase
+4: the full-width engine in both modes, its calibrated gate, against the
+"torch" attention, its launches per stage-chunk), `beats_engine` (phase
+4b: two BEATs stages on the engine, their mha_packed_relpos and
+epilogue launches counted), `train_alone`
 (mha_packed_trainable alone at (16, 1214, 768)), `train` (the
 full-width training step of both routes, which logs its ms per step),
 `loop` (the training loop, which logs its ms per step) and `serving`

@@ -39,7 +39,18 @@ LayerNorm statistics in f32 as in `models.ast`; GELU computed in f32 inside
 PyTorch's kernel and rounded once to the compute dtype; dense layers with
 their bias added inside the product (`F.linear`, before the rounding:
 BEATs has no JAX function whose order to keep); the gates, the position
-convolution and the logits in f32; the forward inside `full_f32()`. Under a profiler the work is named by the
+convolution and the logits in f32; the forward inside `full_f32()`. Where
+autograd records nothing (`fused_trunk`: the engine, streaming, every
+no-grad forward) each block's two post-LN steps run as
+`ops.epilogue.post_residual_layer_norm` and each layer's gates as
+`ops.epilogue.relpos_gates`: on the card one kernel each
+(`csrc/trunk_epilogue.cu`), which rounds the residual sum
+bf16(P + alpha x) as `torch.add` does (one f32 fma), then normalises in
+f32 and rounds once (within one bf16 ulp of ATen's LayerNorm), and reads
+the bf16 q once for the gates' f32 product, sums, sigmoid and a (b grep_a
+- 1) + 2 (within `GATE_TOL` of the f32 composition); on the CPU their
+plain versions, the composition bit for bit. A recorded forward keeps the
+composition. Under a profiler the work is named by the
 spans `beats.embed` (stem and position convolution), `beats.relpos` (the
 bucket vector, each layer's gates) and `beats.attention` (each attention
 call). Inference only: training and int8 take the AST alone.
@@ -56,6 +67,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..ops import attention as attn_ops
+from ..ops import epilogue as epi
 from ..ops import fbank as F
 from ..utils.precision import full_f32
 from ..utils.profiling import span
@@ -228,18 +240,25 @@ def relpos_vector(params: Params, config: BEATsConfig,
     return table.float()[index].t().contiguous()
 
 
+def fused_trunk() -> bool:
+    """Whether the blocks take `ops.epilogue`'s passes (`post_residual_
+    layer_norm`, `relpos_gates`: their kernels on the card, their plain
+    versions on the CPU): when autograd records nothing (`torch.no_grad`,
+    `torch.inference_mode`). A recorded forward keeps the composition,
+    which autograd differentiates."""
+    return not torch.is_grad_enabled()
+
+
 def relpos_gates(q: torch.Tensor, lp: Params,
                  config: BEATsConfig) -> torch.Tensor:
     """(B, NH, S) f32 gates of one layer from its projected q (B, S, H)
     (bias included, unscaled): (a, b) = sigmoid of the sums over groups of
-    four of `grep_linear(q_h)`, g = a (b grep_a_h - 1) + 2."""
-    B, S, H = q.shape
-    NH = config.encoder_attention_heads
-    z = torch.matmul(q.float().view(B, S, NH, H // NH), lp["grep"]["kernel"]
-                     .float()) + lp["grep"]["bias"].float()
-    ab = torch.sigmoid(z.view(B, S, NH, 2, 4).sum(-1))
-    g = ab[..., 0] * (ab[..., 1] * lp["grep_a"].float() - 1.0) + 2.0
-    return g.transpose(1, 2).contiguous()
+    four of `grep_linear(q_h)`, g = a (b grep_a_h - 1) + 2; one pass over
+    q where `fused_trunk()` holds."""
+    gates = (epi.relpos_gates if fused_trunk()
+             else epi.relpos_gates_reference)
+    return gates(q, lp["grep"]["kernel"].float(), lp["grep"]["bias"].float(),
+                 lp["grep_a"].float(), config.encoder_attention_heads)
 
 
 def _linear(x, p):
@@ -265,14 +284,18 @@ def _attention(x, lp, rel, config: BEATsConfig, impl: str):
 
 def _block(x, lp, rel, config: BEATsConfig, impl: str):
     """One post-LN DeepNorm block: x = LN(alpha x + f(x)) after the
-    attention and after the feed-forward, the sums in the compute dtype."""
+    attention and after the feed-forward, the sums in the compute dtype;
+    each sum and LayerNorm one pass where `fused_trunk()` holds."""
     eps, alpha = config.layer_norm_eps, config.deep_norm_alpha
-    a = _attention(x, lp, rel, config, impl)
-    x = _layer_norm(torch.add(a, x, alpha=alpha), lp["ln1"]["scale"],
-                    lp["ln1"]["bias"], eps)
+    norm = (epi.post_residual_layer_norm if fused_trunk()
+            else epi.post_residual_layer_norm_reference)
+
+    def post_ln(p, x, ln):
+        return norm(p, x, ln["scale"].float(), ln["bias"].float(), eps, alpha)
+
+    x = post_ln(_attention(x, lp, rel, config, impl), x, lp["ln1"])
     h = nnf.gelu(_linear(x, lp["fc1"]), approximate="none")
-    return _layer_norm(torch.add(_linear(h, lp["fc2"]), x, alpha=alpha),
-                       lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    return post_ln(_linear(h, lp["fc2"]), x, lp["ln2"])
 
 
 def position_conv(x: torch.Tensor, conv: Params,

@@ -62,14 +62,17 @@ _ENTRY_POINTS = {
         "mha_packed_lse_f32": 5}),
     "attention_ws": _walks({"mha_packed_bf16": 4, "mha_packed_lse_bf16": 5,
                             "mha_packed_relpos_bf16": 6}),
-    # the AST trunk's elementwise epilogues (ops/epilogue.py): rows, width
-    # and LayerNorm's eps
+    # the trunks' elementwise epilogues (ops/epilogue.py): rows and width,
+    # BEATs's alpha and LayerNorm's eps; the gates' batch, tokens, width
+    # and heads
     "trunk_epilogue": {
         **{f"{name}_{dtype}": spec for dtype in _DTYPES
            for name, spec in (("qkv_bias", (6, 2, True)),
                               ("bias_gelu", (2, 2, True)),
                               ("residual_layer_norm", (7, 2, True, 1)),
-                              ("layer_norm", (4, 2, True, 1)))}},
+                              ("layer_norm", (4, 2, True, 1)),
+                              ("post_residual_layer_norm", (5, 2, True, 2)),
+                              ("relpos_gates", (5, 4, True)))}},
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
